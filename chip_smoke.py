@@ -4,15 +4,26 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernel from `wav2vec2_tpu_torch/csrc/`, holds it
-against its plain PyTorch version and the numpy oracle, drives the port's
-main path at the full width of wav2vec2-base (random weights from a numpy
-seed) through both entry points — `BatchAligner.submit_padded_batch` on
-32 × 10 s and `ForcedAlignerBuilder` on 3 requests — checks the results
-with the gates of `bench.py`, and times the kernel, the forward and the
-batch path. Every failure raises and the exit code is non-zero; without a
-CUDA device it exits non-zero before running anything. The last line of
-standard output is one JSON object naming the device.
+It builds the CUDA kernels from `wav2vec2_tpu_torch/csrc/` (K1 and the
+blocked tiers K2, K3, K4), holds each against its plain PyTorch version and
+the numpy oracle (K4 also against K1 at hour scale), and drives the port's
+paths at the full width of wav2vec2-base (random weights from a numpy seed)
+through the entry points a user calls:
+
+- `BatchAligner.submit_padded_batch` on 32 × 10 s with the gates of
+  `bench.py` (K1), and on a long bucket that selects K2;
+- `ForcedAlignerBuilder` on 3 requests (K1);
+- `align_longform` on 10 min of audio with a 1 200-word transcript (K4),
+  with gates (a)–(d), and on 3 min with a phoneme-size vocabulary and a
+  short transcript (K3).
+
+Each path runs with the kernels' launch counts set to 0 just before it and
+read just after. It times the kernels (CUDA events) beside their plain
+versions and their bounds, the forward, the long-form path and the batch
+path with its drain. Every failure raises and the exit code is non-zero;
+without a CUDA device it exits non-zero before running anything. The line
+before the last is the `kernels` JSON object; the last line of standard
+output is one JSON object naming the device.
 """
 
 from __future__ import annotations
@@ -39,8 +50,17 @@ BASE_CONFIG = dict(
 WORDS = ["THE", "QUICK", "BROWN", "FOX", "JUMPS", "OVER", "LAZY", "DOG",
          "WHILE", "SINGING", "ANCIENT", "MELODIES", "UNDER", "BRIGHT",
          "WINTER", "STARS", "NEAR", "FROZEN", "RIVERS", "TONIGHT"]
+# the transcript of the JAX package's long-form example
+# (examples/longform_alignment.py): these 8 words, 15 times a minute
+LONGFORM_WORDS = WORDS[:8]
 SAMPLE_RATE = 16000
 S_PAD = 256
+PHONEME_VOCAB = 392  # phoneme-CTC vocabulary size of the hour-scale phoneme shape
+HOUR_FRAMES = 180_000
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+DP_OPS_PER_CELL = 4  # two compare-selects, the skip-rule test, one add
 
 
 def make_vocab() -> dict[str, int]:
@@ -73,17 +93,7 @@ def kernel_cases(rng):
     s_lens = np.minimum(rng.integers(1, S_PAD + 1, size=b), 2 * t_lens).astype(np.int32)
     cases.append(("ragged t_len B=16 T_pad=499", random_log_probs(rng, b, t, v),
                   rng.integers(0, v, size=(b, S_PAD)).astype(np.int32), t_lens, s_lens))
-    # edge cases: s_len=1; s_len=2*t_len (tightest band); repeated tokens
-    # [0,1,0,1,0] (skip rule); t_len < T_pad; -inf emissions
-    t_pad, s_pad = 64, 128
-    lp = random_log_probs(rng, 5, t_pad, 8)
-    lp[4, :, 3] = -np.inf
-    tokens = rng.integers(0, 8, size=(5, s_pad)).astype(np.int32)
-    tokens[2, :5] = [0, 1, 0, 1, 0]
-    tokens[4, :40:2] = 3
-    cases.append(("edge cases T_pad=64 S_pad=128", lp, tokens,
-                  np.array([64, 20, 12, 64, 40], np.int32),
-                  np.array([1, 40, 5, 128, 40], np.int32)))
+    cases.append(edge_case(rng))
     b, t, s_pad = 4, 1499, 768
     cases.append(("large B=4 T=1499 S_pad=768", random_log_probs(rng, b, t, v),
                   rng.integers(0, v, size=(b, s_pad)).astype(np.int32),
@@ -92,10 +102,68 @@ def kernel_cases(rng):
     return cases
 
 
-def check_kernel(device, cases, oracle_rows=3):
-    """Kernel vs its plain PyTorch version (all rows, all frames) and vs the
-    numpy oracle (a few rows), bit-identical. Returns the max abs path
-    difference (0) and the number of rows compared."""
+def edge_case(rng):
+    """s_len=1; s_len=2*t_len (tightest band); repeated tokens [0,1,0,1,0]
+    (skip rule); t_len < T_pad; -inf emissions."""
+    t_pad, s_pad = 64, 128
+    lp = random_log_probs(rng, 5, t_pad, 8)
+    lp[4, :, 3] = -np.inf
+    tokens = rng.integers(0, 8, size=(5, s_pad)).astype(np.int32)
+    tokens[2, :5] = [0, 1, 0, 1, 0]
+    tokens[4, :40:2] = 3
+    return ("edge cases T_pad=64 S_pad=128", lp, tokens,
+            np.array([64, 20, 12, 64, 40], np.int32),
+            np.array([1, 40, 5, 128, 40], np.int32))
+
+
+def blocked_cases(rng):
+    """{tier: cases} for K2, K3, K4 forced by `tier=`: a ragged batch per
+    tier at the widths each serves, the edge cases, and odd widths (T_pad
+    not a multiple of 8, S_pad and V not multiples of 4: the kernels' 4-byte
+    copy path)."""
+    def case(name, b, t, v, s_pad, t_lens, s_lens):
+        return (name, random_log_probs(rng, b, t, v),
+                rng.integers(0, v, size=(b, s_pad)).astype(np.int32),
+                np.asarray(t_lens, np.int32), np.asarray(s_lens, np.int32))
+
+    edge = edge_case(rng)
+    odd = case("odd widths T_pad=37 S_pad=61 V=397", 3, 37, 397, 61,
+               [37, 30, 5], [61, 44, 9])
+    return {
+        "k2": [case("ragged B=8 T_pad=2400 S_pad=128 V=32", 8, 2400, 32, 128,
+                    [2400, 2399, 2001, 1500, 999, 320, 17, 8],
+                    [128, 127, 100, 128, 64, 128, 20, 16]), edge, odd],
+        "k3": [case("ragged B=4 T_pad=2400 S_pad=128 V=392", 4, 2400, PHONEME_VOCAB, 128,
+                    [2400, 1777, 300, 64], [128, 90, 128, 40]), edge, odd],
+        "k4": [case("ragged B=4 T_pad=2400 S_pad=1024 V=32", 4, 2400, 32, 1024,
+                    [2400, 2000, 600, 100], [1024, 1000, 700, 150]),
+               case("ragged B=4 T_pad=2400 S_pad=1024 V=392", 4, 2400, PHONEME_VOCAB, 1024,
+                    [2400, 2000, 600, 100], [1024, 1000, 700, 150]), edge, odd],
+    }
+
+
+def plain_version(tier, log_probs, tokens, t_lens, s_lens):
+    """The plain PyTorch version of `tier` on the same inputs."""
+    from wav2vec2_tpu_torch.ops import viterbi_ref
+
+    if tier in ("k2", "k3"):
+        emit = viterbi_ref.gather_emissions(log_probs, tokens)
+        return viterbi_ref.viterbi_emissions_batch(emit, tokens, t_lens, s_lens)
+    return viterbi_ref.viterbi_batch(log_probs, tokens, t_lens, s_lens)
+
+
+def oracle_rows(t_lens, s_lens, max_cells=300_000, max_rows=3):
+    """Rows cheap enough for the scalar numpy oracle: the smallest T·S
+    first, at least one."""
+    order = np.argsort(t_lens.astype(np.int64) * s_lens, kind="stable")
+    rows = [int(j) for j in order[:max_rows] if int(t_lens[j]) * int(s_lens[j]) <= max_cells]
+    return rows or [int(order[0])]
+
+
+def check_kernel(device, cases, tier="k1"):
+    """Kernel `tier` (forced) vs its plain PyTorch version (all rows, all
+    frames) and vs the numpy oracle (a few rows), bit-identical. Returns the
+    max abs path difference (0)."""
     import torch
 
     from wav2vec2_tpu_torch.ops import viterbi_cuda, viterbi_ref
@@ -103,33 +171,102 @@ def check_kernel(device, cases, oracle_rows=3):
     worst = 0
     for name, lp, tok, t_lens, s_lens in cases:
         args = [torch.from_numpy(a).to(device) for a in (lp, tok, t_lens, s_lens)]
-        got = viterbi_cuda.viterbi_batch(*args).cpu().numpy()
-        plain = viterbi_ref.viterbi_batch(*args).cpu().numpy()
+        got = viterbi_cuda.viterbi_batch(*args, tier=tier).cpu().numpy()
+        plain = plain_version(tier, *args).cpu().numpy()
         diff = int(np.abs(got.astype(np.int64) - plain).max())
         worst = max(worst, diff)
         if diff:
             bad = np.argwhere(got != plain)[0]
-            raise AssertionError(f"{name}: kernel path differs from the plain version "
-                                 f"at (row, frame) {tuple(bad)}")
-        for j in range(min(oracle_rows, len(t_lens))):
+            raise AssertionError(f"{tier} {name}: kernel path differs from the plain "
+                                 f"version at (row, frame) {tuple(bad)}")
+        rows = oracle_rows(t_lens, s_lens)
+        for j in rows:
             t_i, s_i = int(t_lens[j]), int(s_lens[j])
             ref = np.asarray([s for s, _ in viterbi_ref.viterbi_numpy(
                 lp[j, :t_i], tok[j, :s_i])], np.int32)
             if not (got[j, :t_i] == ref).all() or not (got[j, t_i:] == ref[-1]).all():
-                raise AssertionError(f"{name}: row {j} differs from viterbi_numpy")
-        print(f"kernel check [{name}]: paths bit-identical to the plain version "
-              f"({got.shape[0]} rows) and to viterbi_numpy ({min(oracle_rows, len(t_lens))} rows)")
+                raise AssertionError(f"{tier} {name}: row {j} differs from viterbi_numpy")
+        print(f"kernel check {tier} [{name}]: paths bit-identical to the plain version "
+              f"({got.shape[0]} rows) and to viterbi_numpy (rows {rows})")
     return worst
 
 
-def batch_inputs(rng, vocab, batch, seconds):
+def band_cells(t_lens, s_lens, t_pad):
+    """DP cells these inputs need: the init row plus, for every frame
+    1 <= t < t_len, the states of the band."""
+    cells = 0
+    for t_len, s_len in zip(np.asarray(t_lens, np.int64), np.asarray(s_lens, np.int64)):
+        t = np.arange(1, min(int(t_len), t_pad), dtype=np.int64)
+        start = np.maximum(max(s_len - 2, 0) - 2 * (t_len - 1 - t), 0)
+        end = np.minimum(2 * t + 1, s_len - 1)
+        cells += int(np.maximum(end - start + 1, 0).sum()) + min(int(s_len), 2)
+    return cells
+
+
+def dp_bound(tier, b, t_pad, v, s_pad, t_lens, s_lens):
+    """(bound_ms, bound_by): the larger of the bytes the function must move
+    (each input read once — log-probs for K1/K4, gathered emissions for
+    K2/K3 — tokens, lengths, and the path written once) over 3.35 TB/s, and
+    its band cells' operations over 67 TFLOP/s f32."""
+    src = t_pad * (s_pad if tier in ("k2", "k3") else v)
+    nbytes = 4 * (b * src + b * s_pad + 2 * b + b * t_pad)
+    ops = DP_OPS_PER_CELL * band_cells(t_lens, s_lens, t_pad)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def cuda_time_ms(fn, repeats):
+    """Median over `repeats` of one call timed with CUDA events."""
+    import torch
+
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def interleaved_ms(kernel, plain, kernel_repeats, plain_repeats):
+    """Kernel and plain version timed in turns (plain, kernel, kernel,
+    plain); the median of each pair of medians."""
+    import torch
+
+    kernel(), plain()
+    torch.cuda.synchronize()
+    p1, k1 = cuda_time_ms(plain, plain_repeats), cuda_time_ms(kernel, kernel_repeats)
+    k2, p2 = cuda_time_ms(kernel, kernel_repeats), cuda_time_ms(plain, plain_repeats)
+    return statistics.median([k1, k2]), statistics.median([p1, p2])
+
+
+def reset_launches():
+    from wav2vec2_tpu_torch.ops import viterbi_cuda
+
+    for tier in viterbi_cuda.launches:
+        viterbi_cuda.launches[tier] = 0
+
+
+def read_launches():
+    import torch
+
+    from wav2vec2_tpu_torch.ops import viterbi_cuda
+
+    torch.cuda.synchronize()
+    return dict(viterbi_cuda.launches)
+
+
+def batch_inputs(rng, vocab, batch, seconds, n_words=None, s_pad=S_PAD):
     from wav2vec2_tpu_torch.align.tokenization import build_token_sequence_case_aware
 
     n = int(seconds * SAMPLE_RATE)
-    transcripts = [" ".join(rng.permutation(WORDS)) for _ in range(batch)]
+    transcripts = [" ".join(rng.permutation(WORDS)[:n_words]) for _ in range(batch)]
     seqs = [build_token_sequence_case_aware(t, vocab, 0, 4) for t in transcripts]
     audio = (rng.normal(size=(batch, n)) * 4000).clip(-32768, 32767).astype(np.int16)
-    tokens = np.zeros((batch, S_PAD), np.int32)
+    tokens = np.zeros((batch, s_pad), np.int32)
     for j, s in enumerate(seqs):
         tokens[j, : len(s.tokens)] = s.tokens
     a_l = np.full(batch, n, np.int32)
@@ -212,6 +349,50 @@ def run_batch_entry(device, cfg, params, vocab, batch, seconds, n_check):
     return aligner, inputs
 
 
+def check_words(words, want, what):
+    """All `want` words, in order, with monotone boundaries."""
+    if [w.word for w in words] != list(want):
+        raise AssertionError(f"{what}: {len(words)} words, not the {len(want)} of the "
+                             "transcript in order")
+    for a, b in zip(words, words[1:]):
+        if not (a.start_ms <= a.end_ms <= b.start_ms <= b.end_ms):
+            raise AssertionError(f"{what}: words not monotone: {a} then {b}")
+
+
+def run_long_bucket(aligner, cfg, vocab):
+    """The padded-batch entry on a bucket longer than K1_MAX_FRAMES with
+    short transcripts (S_pad=128): the tier rule selects K2. Checks paths
+    against viterbi_numpy on two utterances and the words. Returns the
+    kernel inputs (log-probs, tokens, t_lens, s_lens) on the device."""
+    import torch
+
+    from wav2vec2_tpu_torch.ops import viterbi_cuda
+    from wav2vec2_tpu_torch.ops.viterbi_ref import viterbi_numpy
+
+    seconds = viterbi_cuda.K1_MAX_FRAMES / 50 + 20
+    seqs, *arrays = batch_inputs(np.random.default_rng(3), vocab, 4, seconds,
+                                 n_words=8, s_pad=128)
+    t_pad = cfg.conv_output_length(arrays[0].shape[1])
+    tier = viterbi_cuda.select_tier(t_pad, 128, cfg.vocab_size)
+    if tier != "k2":
+        raise AssertionError(f"a {seconds:g} s bucket at S_pad=128 selects {tier}, not k2")
+    inputs = [torch.from_numpy(a).to(aligner.device) for a in arrays]
+    handles = aligner.submit_padded_batch(*inputs, return_log_probs=True)
+    outs = aligner.group_batch(seqs, handles)
+    paths, t_lens = handles[0].cpu().numpy(), handles[1].cpu().numpy()
+    lp = handles[-1].cpu().numpy()
+    for j in range(2):
+        t_i = int(t_lens[j])
+        oracle = [s for s, _ in viterbi_numpy(lp[j, :t_i], np.asarray(seqs[j].tokens))]
+        if list(paths[j, :t_i]) != oracle:
+            raise AssertionError(f"long bucket: K2 path differs from viterbi_numpy at {j}")
+    for j, (seq, out) in enumerate(zip(seqs, outs)):
+        check_words(out.words, seq.normalized_words, f"long bucket utterance {j}")
+    print(f"batch entry, long bucket: 4 x {seconds:g} s (T={t_pad}, S_pad=128) bf16 -> tier "
+          f"{tier}; paths == viterbi_numpy (2 utts), all words in order and monotone")
+    return handles[-1], inputs[2], handles[1], inputs[3]
+
+
 def write_model_dir(path: Path, cfg_dict, params_np, cfg, vocab):
     from wav2vec2_tpu_torch.models.params import params_to_hf_flat_dict
     from wav2vec2_tpu_torch.utils.checkpoint import save_safetensors
@@ -244,60 +425,278 @@ def run_single_entry(device, model_dir: Path, durations, n_words):
             raise AssertionError(f"request {i}: T*S={t_len * s_len} is below the "
                                  "device-dispatch threshold")
         res = aligner.align_profiled(AlignmentInput(SAMPLE_RATE, samples, transcript))
-        words = res.output.words
-        if len(words) != n_words:
-            raise AssertionError(f"request {i}: {len(words)} words, want {n_words}")
-        for a, b in zip(words, words[1:]):
-            if not (a.start_ms <= a.end_ms <= b.start_ms <= b.end_ms):
-                raise AssertionError(f"request {i}: words not monotone: {a} then {b}")
+        check_words(res.output.words, transcript.split(), f"request {i}")
         results.append(res)
         print(f"single entry: request {i} ({sec:g} s, T={t_len}, S={s_len}): "
-              f"{len(words)} words, monotone; forward {res.timings.forward_ms:.3f} ms, "
+              f"{n_words} words, monotone; forward {res.timings.forward_ms:.3f} ms, "
               f"dp+evidence {res.timings.dp_ms:.3f} ms, total {res.timings.total_ms:.3f} ms")
     return results
 
 
-def cuda_time_ms(fn, repeats):
-    """Median over `repeats` of one call timed with CUDA events."""
+def longform_pieces(audio, params_dev, cfg, device, compute_dtype, vocab, transcript):
+    """What `align_longform` computes, piece by piece (not counted as a
+    path run): chunk log-probs, the device stitch, the tokens. Returns
+    (chunk lps, spans, n_frames, stitched device lps, padded tokens on the
+    device, TokenSequence, s_len, forward ms)."""
     import torch
 
-    times = []
-    for _ in range(repeats):
+    from wav2vec2_tpu_torch.align import longform
+    from wav2vec2_tpu_torch.align.tokenization import build_token_sequence_case_aware
+    from wav2vec2_tpu_torch.pipeline.runtime import normalize_audio
+
+    normalized = normalize_audio(audio)
+    chunk, overlap = 30 * SAMPLE_RATE, 5 * SAMPLE_RATE
+    with torch.inference_mode():
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        lps, spans, n_frames = longform.chunk_log_probs(
+            normalized, params_dev, cfg, chunk, overlap, compute_dtype, 32, device)
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        total = cfg.conv_output_length(len(audio))
+        stitched = longform.stitch_device(lps, spans, n_frames, cfg.frame_stride_samples(),
+                                          total)
+    seq = build_token_sequence_case_aware(transcript, vocab, 0, 4)
+    s_len = len(seq.tokens)
+    tokens = np.zeros(-(-s_len // 128) * 128, np.int32)
+    tokens[:s_len] = seq.tokens
+    return (lps, spans, n_frames, stitched, torch.from_numpy(tokens).to(device), seq, s_len,
+            start.elapsed_time(end))
+
+
+def run_longform(device, cfg, params, vocab, minutes, card):
+    """`align_longform` at full width, bf16, 30 s chunks with 5 s overlap, on
+    white noise with the JAX example's transcript, counted as a path run.
+    Then gates: (a) its tier's path equals the plain version's path on the
+    same stitched log-probs, on the card; (b) the device-gather stitch
+    equals `stitch_log_probs` bit for bit; (c) grouping from device evidence
+    vs host grouping from host evidence: all words within one frame, >= 99%
+    exact; (d) every word in order, boundaries monotone."""
+    import torch
+
+    from wav2vec2_tpu_torch import align_longform
+    from wav2vec2_tpu_torch.align import longform
+    from wav2vec2_tpu_torch.align.grouping import (
+        frame_evidence_from_log_probs,
+        group_into_words,
+    )
+    from wav2vec2_tpu_torch.ops import viterbi_cuda, viterbi_ref
+
+    rng = np.random.default_rng(4)
+    n = int(minutes * 60 * SAMPLE_RATE)
+    audio = rng.normal(size=n).astype(np.float32)
+    words = LONGFORM_WORDS * int(minutes * 15)
+    transcript = " ".join(words)
+    stride_ms = cfg.frame_stride_ms(SAMPLE_RATE)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = align_longform(audio, transcript, params, cfg, vocab, chunk_sec=30.0,
+                         overlap_sec=5.0, compute_dtype="bfloat16", device=device)
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_words(out.words, words, "gate (d)")
+
+    params_dev = longform.device_params(params, "bfloat16", device)
+    lps, spans, n_frames, stitched, tokens, seq, s_len, fwd_ms = longform_pieces(
+        audio, params_dev, cfg, device, torch.bfloat16, vocab, transcript)
+    t_len, v = stitched.shape
+    tier = viterbi_cuda.select_tier(t_len, tokens.shape[0], v)
+    if tier != "k4":
+        raise AssertionError(f"the {minutes:g} min long-form DP selects {tier}, not k4")
+    host_chunks = [lps[i, :n_f].cpu().numpy() for i, n_f in enumerate(n_frames)]
+    host = longform.stitch_log_probs(host_chunks, spans, cfg.frame_stride_samples(), t_len)
+    lp_host = stitched.cpu().numpy()
+    if not np.array_equal(lp_host, host):
+        raise AssertionError("gate (b): the device-gather stitch differs from stitch_log_probs")
+
+    args = (stitched[None].contiguous(), tokens[None],
+            torch.tensor([t_len], dtype=torch.int32, device=device),
+            torch.tensor([s_len], dtype=torch.int32, device=device))
+    kernel = lambda: viterbi_cuda.viterbi_batch(*args)  # noqa: E731
+    path = kernel()[0].cpu().numpy()
+    k_ms = cuda_time_ms(kernel, 5)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = viterbi_ref.viterbi_batch(*args)[0]
+    end.record()
+    end.synchronize()
+    p_ms = start.elapsed_time(end)
+    err = int(np.abs(path.astype(np.int64) - plain.cpu().numpy()).max())
+    if err:
+        raise AssertionError(f"gate (a): the {tier} path differs from the plain version's")
+
+    ev = frame_evidence_from_log_probs(lp_host, seq.tokens, path, 0)
+    host_words = group_into_words(path, seq.tokens, seq.chars, seq.normalized_words,
+                                  ev, 0, 4, stride_ms)
+    if [w.word for w in host_words] != [w.word for w in out.words]:
+        raise AssertionError("gate (c): word sequences differ")
+    deltas = np.array([max(abs(a.start_ms - b.start_ms), abs(a.end_ms - b.end_ms))
+                       for a, b in zip(out.words, host_words)])
+    exact, within = int((deltas == 0).sum()), int((deltas <= stride_ms).sum())
+    if not (within == len(deltas) and exact >= 0.99 * len(deltas)):
+        raise AssertionError(f"gate (c): {exact}/{len(deltas)} exact, {within} within one frame")
+    print(f"long-form: {minutes:g} min bf16 (T={t_len}, S={s_len}, S_pad={tokens.shape[0]}, "
+          f"V={v}, {len(spans)} chunks) -> tier {tier}, launches {counts}; gates passed: "
+          f"(a) {tier} path == plain path on the card; (b) device stitch == stitch_log_probs "
+          f"bit for bit; (c) grouping {exact}/{len(deltas)} exact, {within}/{len(deltas)} "
+          f"within one frame; (d) {len(out.words)} words in order, monotone")
+    print(f"time: long-form {minutes:g} min {minutes * 60 / wall:.1f}x realtime "
+          f"({wall:.3f} s wall, first call), forward {fwd_ms:.3f} ms, DP ({tier}) "
+          f"{k_ms:.3f} ms (CUDA events, median of 5), plain DP {p_ms:.1f} ms, peak device "
+          f"memory {peak_gb:.2f} GB {card}")
+    return counts, dict(tier=tier, ms=k_ms, plain_ms=p_ms, err=err,
+                        shape=(1, t_len, v, tokens.shape[0], [t_len], [s_len]))
+
+
+def run_longform_phoneme(device, cfg_ph, params_ph, vocab, minutes, card):
+    """`align_longform` at full width with a phoneme-size vocabulary and a
+    short transcript (one sentence in a long recording): S_pad=128 with
+    V=392 at T beyond K2's on-chip bp, so the tier rule selects K3. Counted
+    as a path run; checks every word in order and monotone, and times K3
+    against its plain version on the same stitched log-probs."""
+    import torch
+
+    from wav2vec2_tpu_torch import align_longform
+    from wav2vec2_tpu_torch.align import longform
+    from wav2vec2_tpu_torch.ops import viterbi_cuda, viterbi_ref
+
+    rng = np.random.default_rng(5)
+    audio = rng.normal(size=int(minutes * 60 * SAMPLE_RATE)).astype(np.float32)
+    transcript = " ".join(LONGFORM_WORDS)
+    reset_launches()
+    out = align_longform(audio, transcript, params_ph, cfg_ph, vocab, chunk_sec=30.0,
+                         overlap_sec=5.0, compute_dtype="bfloat16", device=device)
+    counts = read_launches()
+    check_words(out.words, LONGFORM_WORDS, "phoneme-vocab long-form")
+
+    params_dev = longform.device_params(params_ph, "bfloat16", device)
+    _, _, _, stitched, tokens, _, s_len, _ = longform_pieces(
+        audio, params_dev, cfg_ph, device, torch.bfloat16, vocab, transcript)
+    t_len, v = stitched.shape
+    tier = viterbi_cuda.select_tier(t_len, tokens.shape[0], v)
+    if tier != "k3":
+        raise AssertionError(f"the phoneme-vocab long-form DP selects {tier}, not k3")
+    lens = [torch.tensor([x], dtype=torch.int32, device=device) for x in (t_len, s_len)]
+    emit = viterbi_ref.gather_emissions(stitched[None], tokens[None])
+    kernel = lambda: viterbi_cuda.viterbi_emissions_batch(emit, tokens[None], *lens, tier=tier)  # noqa: E731
+    plain = lambda: viterbi_ref.viterbi_emissions_batch(emit, tokens[None], *lens)  # noqa: E731
+    err = int((kernel().long() - plain().long()).abs().max())
+    if err:
+        raise AssertionError(f"phoneme long-form: {tier} path differs from the plain version")
+    k_ms, p_ms = interleaved_ms(kernel, plain, 5, 1)
+    print(f"long-form, phoneme vocab: {minutes:g} min bf16 (T={t_len}, S={s_len}, "
+          f"S_pad={tokens.shape[0]}, V={v}) -> tier {tier}, launches {counts}; "
+          f"{len(out.words)} words in order, monotone; {tier} path == plain path")
+    print(f"time: {tier} {k_ms:.4f} ms vs plain PyTorch {p_ms:.1f} ms at T={t_len} "
+          f"S_pad={tokens.shape[0]} V={v} (CUDA events, medians; plain, kernel, kernel, "
+          f"plain) {card}")
+    return counts, dict(tier=tier, ms=k_ms, plain_ms=p_ms, err=err,
+                        shape=(1, t_len, v, tokens.shape[0], [t_len], [s_len]))
+
+
+def hour_scale(device, card):
+    """K4 vs K1 at T=180 000 on random log-probs (V=32, S=11 127 and V=392,
+    S=12 599): bit-identical paths (K1 is held to the plain version above;
+    the plain version at this T would take minutes), and both timed."""
+    import torch
+
+    from wav2vec2_tpu_torch.ops import viterbi_cuda
+
+    rng = np.random.default_rng(6)
+    rows = []
+    for v, s_len in ((32, 11_127), (PHONEME_VOCAB, 12_599)):
+        gen = torch.Generator(device=device).manual_seed(v)
+        lp = torch.log_softmax(
+            torch.randn((1, HOUR_FRAMES, v), generator=gen, device=device) * 3.0, dim=-1)
+        s_pad = -(-s_len // 128) * 128
+        tok = torch.from_numpy(rng.integers(0, v, size=(1, s_pad)).astype(np.int32)).to(device)
+        lens = [torch.tensor([x], dtype=torch.int32, device=device) for x in (HOUR_FRAMES, s_len)]
+        k4 = viterbi_cuda.viterbi_batch(lp, tok, *lens, tier="k4")
+        k1 = viterbi_cuda.viterbi_batch(lp, tok, *lens, tier="k1")
+        err = int((k4.long() - k1.long()).abs().max())
+        if err:
+            raise AssertionError(f"hour scale V={v}: K4 path differs from K1's")
+        k4_ms, k1_ms = interleaved_ms(
+            lambda: viterbi_cuda.viterbi_batch(lp, tok, *lens, tier="k4"),
+            lambda: viterbi_cuda.viterbi_batch(lp, tok, *lens, tier="k1"), 2, 2)
+        print(f"hour scale: T={HOUR_FRAMES} V={v} S={s_len} S_pad={s_pad}: K4 path == K1 path; "
+              f"K4 {k4_ms:.3f} ms, K1 {k1_ms:.3f} ms (CUDA events; K1, K4, K4, K1) {card}")
+        rows.append((HOUR_FRAMES, s_pad, v, k1_ms, k4_ms))
+        del lp
+    return rows
+
+
+def tier_crossover(device, card, hour_rows):
+    """K1 vs K4 on one utterance at V=32 and T in {599, 1 024, 1 499,
+    6 000, 30 000} (and 180 000 from `hour_scale`), S growing with T as
+    transcripts do: the measurement behind K1_MAX_FRAMES."""
+    import torch
+
+    from wav2vec2_tpu_torch.ops import viterbi_cuda
+
+    rng = np.random.default_rng(7)
+    rows = []
+    for t, s_pad in ((599, 256), (1_024, 512), (1_499, 768), (6_000, 2_432), (30_000, 12_032)):
+        lp = torch.from_numpy(random_log_probs(rng, 1, t, 32)).to(device)
+        tok = torch.from_numpy(rng.integers(0, 32, size=(1, s_pad)).astype(np.int32)).to(device)
+        lens = [torch.tensor([x], dtype=torch.int32, device=device) for x in (t, s_pad - 5)]
+        k1 = lambda: viterbi_cuda.viterbi_batch(lp, tok, *lens, tier="k1")  # noqa: E731
+        k4 = lambda: viterbi_cuda.viterbi_batch(lp, tok, *lens, tier="k4")  # noqa: E731
+        if not torch.equal(k1(), k4()):
+            raise AssertionError(f"crossover T={t}: K4 path differs from K1's")
+        k4_ms, k1_ms = interleaved_ms(k4, k1, 5, 5)
+        rows.append((t, s_pad, 32, k1_ms, k4_ms))
+    for t, s_pad, v, k1_ms, k4_ms in rows + hour_rows:
+        print(f"tier crossover: T={t} S_pad={s_pad} V={v}: K1 {k1_ms:.3f} ms, "
+              f"K4 {k4_ms:.3f} ms, K4/K1 {k4_ms / k1_ms:.3f} {card}")
 
 
 def time_batch_path(aligner, vocab, batch, repeats):
     """Steady-state throughput of the batch entry, as bench.py measures
     it: input staged on the device once, then `repeats` batches
     double-buffered (the next batch is enqueued before this one's results
-    are copied back and grouped on the host). Returns (realtime factor,
-    wall seconds, peak device memory in GB)."""
+    are drained and grouped on the host). Returns (realtime factor, wall
+    seconds, peak device memory in GB, ms per batch spent waiting for the
+    host copies, ms per batch grouping)."""
     import torch
 
     seqs, *arrays = batch_inputs(np.random.default_rng(2), vocab, batch, 10.0)
     inputs = [torch.from_numpy(a).to(aligner.device) for a in arrays]
-    aligner.group_batch(seqs, aligner.submit_padded_batch(*inputs))  # warm-up
+    for _ in range(2):  # warm-up, two batches in flight as below
+        aligner.group_batch(seqs, aligner.submit_padded_batch(*inputs))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    wait_s = group_s = 0.0
+
+    def drain(handles):
+        nonlocal wait_s, group_s
+        t0 = time.perf_counter()
+        handles.copied.synchronize()
+        t1 = time.perf_counter()
+        outs = aligner.group_batch(seqs, handles)
+        wait_s += t1 - t0
+        group_s += time.perf_counter() - t1
+        return outs
+
     t0 = time.perf_counter()
     inflight = aligner.submit_padded_batch(*inputs)
     for _ in range(repeats - 1):
         nxt = aligner.submit_padded_batch(*inputs)
-        aligner.group_batch(seqs, inflight)
+        drain(inflight)
         inflight = nxt
-    outs = [o.words for o in aligner.group_batch(seqs, inflight)]
+    outs = [o.words for o in drain(inflight)]
     total_s = time.perf_counter() - t0
     if not all(len(w) > 0 for w in outs):
         raise AssertionError(f"B={batch}: an utterance aligned to no words in the timed loop")
     return (repeats * batch * 10.0 / total_s, total_s,
-            torch.cuda.max_memory_allocated() / 1e9)
+            torch.cuda.max_memory_allocated() / 1e9,
+            wait_s / repeats * 1e3, group_s / repeats * 1e3)
 
 
 def main() -> int:
@@ -326,51 +725,100 @@ def main() -> int:
     info = viterbi_cuda.build(force=True)
     ptxas = " | ".join(l.strip() for l in info["compiler_output"].splitlines()
                        if "registers" in l or "smem" in l)
-    print(f"build: {viterbi_cuda.SOURCE.name} -> {info['library']} in {info['seconds']:.3f} s "
-          f"(nvcc {' '.join(viterbi_cuda.NVCC_FLAGS)}); ptxas: {ptxas}")
+    print(f"build: {', '.join(s.name for s in viterbi_cuda.SOURCES)} -> {info['library']} in "
+          f"{info['seconds']:.3f} s (nvcc {' '.join(viterbi_cuda.NVCC_FLAGS)}); ptxas: {ptxas}")
 
+    for shape in ((499, 256, 32), (3047, 128, 32), (37, 61, 397), (HOUR_FRAMES, 12_672, 392)):
+        for tier in viterbi_cuda.TIERS:
+            if viterbi_cuda.library_smem_bytes(tier, *shape) != viterbi_cuda.smem_bytes(tier, *shape):
+                raise AssertionError(f"{tier} at {shape}: the wrapper's shared-memory size "
+                                     "differs from the kernel's")
+
+    # --- every kernel against its plain version ---------------------------
     rng = np.random.default_rng(0)
     cases = kernel_cases(rng)
-    max_err = check_kernel(device, cases)
+    max_err = {"k1": check_kernel(device, cases, "k1")}
+    for tier, tier_cases in blocked_cases(np.random.default_rng(8)).items():
+        max_err[tier] = check_kernel(device, tier_cases, tier)
+    hour_rows = hour_scale(device, card)
+    tier_crossover(device, card, hour_rows)
 
     cfg = Wav2Vec2ModelConfig.from_dict(BASE_CONFIG)
     vocab = make_vocab()
     params_np = init_params(cfg, seed=0)
     params = params_from_jax(params_np, device=device)
 
-    launches = {}
-    viterbi_cuda.viterbi_batch.launches = 0
+    # --- the paths, each counted from 0 -----------------------------------
+    launches = {tier: 0 for tier in viterbi_cuda.TIERS}
+
+    def add(counts, phase, want):
+        for tier, n in counts.items():
+            launches[tier] += n
+        if counts[want] < 1:
+            raise AssertionError(f"{phase} never launched {want}: {counts}")
+
+    reset_launches()
     aligner, inputs = run_batch_entry(device, cfg, params, vocab,
-                                              batch=32, seconds=10.0, n_check=16)
-    torch.cuda.synchronize()
-    launches["batch"] = viterbi_cuda.viterbi_batch.launches
-    if launches["batch"] < 1:
-        raise AssertionError("the batch entry never launched the K1 kernel")
+                                      batch=32, seconds=10.0, n_check=16)
+    add(read_launches(), "the batch entry", "k1")
+
+    reset_launches()
+    k2_inputs = run_long_bucket(aligner, cfg, vocab)
+    add(read_launches(), "the batch entry's long bucket", "k2")
 
     with tempfile.TemporaryDirectory() as tmp:
         write_model_dir(Path(tmp), BASE_CONFIG, params_np, cfg, vocab)
-        viterbi_cuda.viterbi_batch.launches = 0
+        reset_launches()
         single = run_single_entry(device, Path(tmp), durations=(4.0, 8.0, 12.0), n_words=14)
-        torch.cuda.synchronize()
-        launches["single"] = viterbi_cuda.viterbi_batch.launches
-    if launches["single"] < len(single):
-        raise AssertionError(f"the single-utterance entry launched K1 {launches['single']} "
-                             f"times for {len(single)} requests")
-    print(f"launch counts of K1 on the main path: batch entry {launches['batch']}, "
-          f"single-utterance entry {launches['single']}")
+        counts = read_launches()
+    add(counts, "the single-utterance entry", "k1")
+    if sum(counts.values()) != len(single):
+        raise AssertionError(f"the single-utterance entry launched {counts} for "
+                             f"{len(single)} requests")
+
+    counts, k4_run = run_longform(device, cfg, params, vocab, minutes=10.0, card=card)
+    add(counts, "the long-form entry", "k4")
+    max_err["k4"] = max(max_err["k4"], k4_run["err"])
+
+    cfg_ph = Wav2Vec2ModelConfig.from_dict({**BASE_CONFIG, "vocab_size": PHONEME_VOCAB})
+    head = np.random.default_rng(9).standard_normal((768, PHONEME_VOCAB), dtype=np.float32)
+    params_ph = params_from_jax({**params_np, "lm_head": {
+        "kernel": head * np.float32((2.0 / (768 + PHONEME_VOCAB)) ** 0.5),
+        "bias": np.zeros(PHONEME_VOCAB, np.float32)}}, device=device)
+    counts, k3_run = run_longform_phoneme(device, cfg_ph, params_ph, vocab, minutes=3.0,
+                                          card=card)
+    add(counts, "the phoneme-vocab long-form entry", "k3")
+    max_err["k3"] = max(max_err["k3"], k3_run["err"])
+    del params_ph
+    print(f"launch counts on the paths: {launches}")
 
     # --- times, each beside the card's name and power limit --------------
+    kernels = {}
     _, lp, tok, t_lens, s_lens = cases[0]
     args = [torch.from_numpy(a).to(device) for a in (lp, tok, t_lens, s_lens)]
-    kernel = lambda: viterbi_cuda.viterbi_batch(*args)  # noqa: E731
-    plain = lambda: viterbi_ref.viterbi_batch(*args)  # noqa: E731
-    kernel(), plain()
-    torch.cuda.synchronize()
-    p1, k1 = cuda_time_ms(plain, 5), cuda_time_ms(kernel, 50)
-    k2, p2 = cuda_time_ms(kernel, 50), cuda_time_ms(plain, 5)
-    k_ms, p_ms = statistics.median([k1, k2]), statistics.median([p1, p2])
+    k_ms, p_ms = interleaved_ms(lambda: viterbi_cuda.viterbi_batch(*args, tier="k1"),
+                                lambda: viterbi_ref.viterbi_batch(*args), 50, 5)
     print(f"time: K1 kernel {k_ms:.4f} ms vs plain PyTorch {p_ms:.4f} ms at B=128 T=499 "
           f"S_pad=256 (CUDA events, medians; plain, kernel, kernel, plain) {card}")
+    kernels["k1"] = dict(ms=k_ms, plain_ms=p_ms,
+                         shape=(128, 499, 32, S_PAD, t_lens, s_lens))
+
+    lp2, tok2, tl2, sl2 = k2_inputs
+    emit2 = viterbi_ref.gather_emissions(lp2, tok2)
+    k_ms, p_ms = interleaved_ms(
+        lambda: viterbi_cuda.viterbi_emissions_batch(emit2, tok2, tl2, sl2, tier="k2"),
+        lambda: viterbi_ref.viterbi_emissions_batch(emit2, tok2, tl2, sl2), 10, 1)
+    b2, t2, s2 = emit2.shape
+    print(f"time: K2 kernel {k_ms:.4f} ms vs plain PyTorch {p_ms:.1f} ms at the long bucket "
+          f"B={b2} T={t2} S_pad={s2} (CUDA events, medians; plain, kernel, kernel, plain) {card}")
+    with_gather, k4_ms = interleaved_ms(
+        lambda: viterbi_cuda.viterbi_batch(lp2, tok2, tl2, sl2, tier="k2"),
+        lambda: viterbi_cuda.viterbi_batch(lp2, tok2, tl2, sl2, tier="k4"), 10, 10)
+    print(f"time: at the same bucket, gather + K2 {with_gather:.4f} ms vs K4 {k4_ms:.4f} ms "
+          f"(CUDA events, medians) {card}")
+    kernels["k2"] = dict(ms=k_ms, plain_ms=p_ms, shape=(b2, t2, lp2.shape[2], s2,
+                                                        tl2.cpu().numpy(), sl2.cpu().numpy()))
+    kernels["k3"], kernels["k4"] = k3_run, k4_run
 
     from wav2vec2_tpu_torch.models.ctc_model import wav2vec2_forward
     from wav2vec2_tpu_torch.parallel.batching import _normalize_batch
@@ -385,22 +833,35 @@ def main() -> int:
           f"(CUDA events, median of 5) {card}")
 
     for batch in (32, 128):
-        rtf, total_s, peak_gb = time_batch_path(aligner, vocab, batch, repeats=5)
+        rtf, total_s, peak_gb, wait_ms, group_ms = time_batch_path(aligner, vocab, batch,
+                                                                   repeats=5)
         print(f"time: batch path {rtf:.1f}x realtime (5 batches of {batch} x 10 s, bf16, "
-              f"submit/drain double-buffered, {total_s:.3f} s wall, peak device memory "
-              f"{peak_gb:.2f} GB) {card}")
-    print(f"total smoke time {time.perf_counter() - t_start:.1f} s")
+              f"submit/drain double-buffered, {total_s:.3f} s wall = {total_s / 5 * 1e3:.1f} ms "
+              f"per batch; per batch the host waited {wait_ms:.1f} ms for the copies and "
+              f"grouped for {group_ms:.1f} ms; peak device memory {peak_gb:.2f} GB) {card}")
+    print(f"total smoke time {time.perf_counter() - t_start:.1f} s {card}")
 
-    print(json.dumps({"kernels": [{
-        "name": "viterbi_k1",
-        "route": "cuda",
-        "source": "wav2vec2_tpu_torch/csrc/viterbi.cu",
-        "replaces": "wav2vec2_tpu/ops/viterbi_pallas.py:59",
-        "launches": launches["batch"] + launches["single"],
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+    replaces = {"k1": 59, "k2": 366, "k3": 367, "k4": 368}
+    sources = {"k1": "viterbi.cu", "k2": "viterbi_blocked.cu", "k3": "viterbi_blocked.cu",
+               "k4": "viterbi_blocked.cu"}
+    line = []
+    for tier in viterbi_cuda.TIERS:
+        k = kernels[tier]
+        bound_ms, bound_by = dp_bound(tier, *k["shape"][:4], *k["shape"][4:])
+        line.append({
+            "name": f"viterbi_{tier}",
+            "route": "cuda",
+            "source": f"wav2vec2_tpu_torch/csrc/{sources[tier]}",
+            "replaces": f"wav2vec2_tpu/ops/viterbi_pallas.py:{replaces[tier]}",
+            "launches": launches[tier],
+            "max_abs_err": max_err[tier],
+            "ms": k["ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes a banded Viterbi path
+        })
+    print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -13,8 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import check_kernel, kernel_cases
+from chip_smoke import blocked_cases, check_kernel, kernel_cases
 from wav2vec2_tpu_torch.ops import viterbi_cuda
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Viterbi CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
 
 
 @pytest.mark.cuda
@@ -23,10 +29,38 @@ def test_k1_kernel_matches_plain_on_the_card():
     and frame) and to viterbi_numpy (a few rows) at the serving shape, a
     ragged-t_len batch, the band and skip-rule edge cases and a long
     utterance; one launch per case."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the K1 CUDA kernel has no CPU mode")
+    device = _card()
     cases = kernel_cases(np.random.default_rng(0))
-    before = viterbi_cuda.viterbi_batch.launches
-    assert check_kernel(torch.device("cuda", 0), cases) == 0
+    before = viterbi_cuda.launches["k1"]
+    assert check_kernel(device, cases) == 0
     torch.cuda.synchronize()
-    assert viterbi_cuda.viterbi_batch.launches == before + len(cases)
+    assert viterbi_cuda.launches["k1"] == before + len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["k2", "k3", "k4"])
+def test_blocked_kernel_matches_plain_on_the_card(tier):
+    """K2, K3 and K4, each forced by `tier=`: bit-identical to the plain
+    version of the tier and to viterbi_numpy on ragged batches, the edge
+    cases and odd widths; one launch per case."""
+    device = _card()
+    cases = blocked_cases(np.random.default_rng(8))[tier]
+    before = viterbi_cuda.launches[tier]
+    assert check_kernel(device, cases, tier) == 0
+    torch.cuda.synchronize()
+    assert viterbi_cuda.launches[tier] == before + len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier,t_pad,s_pad,v", [
+    ("k2", 100_000, 128, 32), ("k3", 64, 4096, 32), ("k4", 64, 128, 4096),
+])
+def test_forced_tier_that_does_not_fit_raises_before_launching(tier, t_pad, s_pad, v):
+    device = _card()
+    lp = torch.zeros((1, t_pad, v), device=device)
+    tok = torch.zeros((1, s_pad), dtype=torch.int32, device=device)
+    lens = torch.ones(1, dtype=torch.int32, device=device)
+    before = dict(viterbi_cuda.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        viterbi_cuda.viterbi_batch(lp, tok, lens, lens, tier=tier)
+    assert viterbi_cuda.launches == before

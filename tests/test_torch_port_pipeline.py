@@ -10,8 +10,9 @@
   device-dispatch threshold.
 - The port's safetensors reader/writer round-trip against the
   `safetensors` package.
-- The port imports and runs its CPU slice with jax, safetensors and
-  transformers made unimportable.
+- The port imports and runs its CPU slice (batch, single-utterance and
+  long-form entries) with jax, safetensors and transformers made
+  unimportable.
 """
 
 import json
@@ -133,6 +134,48 @@ def test_submit_padded_batch_int16_on_device_normalize(models):
         _assert_same_alignment(got[j].words, want, stride)
 
 
+def test_drain_reads_the_host_copies_and_groups_alike(models):
+    """The drain repair: `submit_padded_batch` returns `BatchHandles`, and
+    `group_batch` waits on `copied` and reads `host` where the CUDA path
+    left pinned copies (simulated here: device tensors replaced by
+    garbage, a completed event), or copies the tensors itself; both give
+    the words of the plain-tuple drain, and `align_padded_batch` the same
+    arrays."""
+    from wav2vec2_tpu_torch.parallel.batching import BatchHandles
+
+    _, tcfg, _, tp = models
+    port = BatchAligner(tcfg, tp, VOCAB, "float32", device="cpu")
+    seqs = [port._tokenize(t) for t in ("brown fox jumps", "over the dog")]
+    tokens = np.zeros((2, 128), np.int32)
+    for j, s in enumerate(seqs):
+        tokens[j, : len(s.tokens)] = s.tokens
+    s_l = np.array([len(s.tokens) for s in seqs], np.int32)
+    rng = np.random.default_rng(8)
+    audio = rng.normal(size=(2, 3000)).astype(np.float32)
+    a_l = np.array([3000, 2600], np.int32)
+    handles = port.submit_padded_batch(audio, a_l, tokens, s_l)
+    assert isinstance(handles, BatchHandles) and len(handles) == 6
+    assert handles.host is None and handles.copied is None
+    plain = port.group_batch(seqs, tuple(handles))
+
+    class Completed:
+        waited = False
+
+        def synchronize(self):
+            self.waited = True
+
+    staged = BatchHandles(tuple(torch.full_like(h, -1) for h in handles))
+    staged.host, staged.copied = tuple(h.clone() for h in handles), Completed()
+    for outs in (port.group_batch(seqs, handles), port.group_batch(seqs, staged)):
+        for got, want in zip(outs, plain):
+            assert [(w.word, w.start_ms, w.end_ms, w.confidence) for w in got.words] == \
+                [(w.word, w.start_ms, w.end_ms, w.confidence) for w in want.words]
+            assert got.words
+    assert staged.copied.waited
+    for got, want in zip(port.align_padded_batch(audio, a_l, tokens, s_l), handles):
+        np.testing.assert_array_equal(got, want.numpy())
+
+
 @pytest.mark.parametrize("seconds", [0.1, 0.35])
 def test_builder_matches_jax_builder(model_dir, seconds):
     """0.1 s (T*S below kernel_dp_threshold: host oracle) and 0.35 s
@@ -248,6 +291,10 @@ c = w.Wav2Vec2Config({str(model_dir / 'model.safetensors')!r}, {str(model_dir / 
 res = w.ForcedAlignerBuilder(c).build().align(
     w.AlignmentInput(16000, rng.normal(size=5000).astype(np.float32), "over the lazy dog"))
 assert len(res.words) == 4
+lf = w.align_longform(rng.normal(size=20000).astype(np.float32), "the quick brown fox",
+                      params_from_jax(init_params(cfg, 0)), cfg, vocab, chunk_sec=0.5,
+                      overlap_sec=0.125, device="cpu")
+assert [x.word for x in lf.words] == ["THE", "QUICK", "BROWN", "FOX"], lf
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("wav2vec2_tpu", "jax")
              and sys.modules[m] is not None)
 assert not bad, bad

@@ -1,0 +1,194 @@
+"""PyTorch port vs the JAX package: the blocked Viterbi tiers K2, K3, K4.
+
+- `select_tier`, the Hopper tier rule, on the shapes each path sends: the
+  serving shape, long batch buckets, 10 and 60 min long-form with char and
+  phoneme vocabularies, and a wide vocabulary with a short transcript.
+- The plain versions: `viterbi_emissions_batch` (K2, K3) and
+  `viterbi_batch` (K1, K4) bit-identical to `viterbi_numpy`.
+- The port's plain version of each tier bit-identical to the JAX tier it
+  replaces, run in interpret mode and forced by monkeypatching
+  `VMEM_BUDGET_BYTES` as tests/test_viterbi_pallas.py does: tolerance 0.
+The CUDA kernels themselves are held to these plain versions on the card
+(tests/test_torch_port_cuda.py, chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import wav2vec2_tpu.ops.viterbi_pallas as vp
+from wav2vec2_tpu.ops.viterbi_ref import viterbi_numpy as jax_viterbi_numpy
+from wav2vec2_tpu_torch.ops import viterbi_cuda, viterbi_ref
+
+
+def _log_probs(rng, b, t, v):
+    x = rng.normal(size=(b, t, v)).astype(np.float32) * 3
+    return (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+
+
+def _batch(seed, b, t_pad, v, s_pad):
+    """Ragged batch: t_len < T_pad and s_len < S_pad on some rows."""
+    rng = np.random.default_rng(seed)
+    lp = _log_probs(rng, b, t_pad, v)
+    tok = rng.integers(0, v, size=(b, s_pad)).astype(np.int32)
+    t_lens = np.array([t_pad] + list(rng.integers(max(t_pad // 3, 1), t_pad + 1, size=b - 1)),
+                      np.int32)
+    s_lens = np.minimum(rng.integers(1, s_pad + 1, size=b), 2 * t_lens).astype(np.int32)
+    s_lens[0] = min(s_pad, 2 * t_pad)
+    return lp, tok, t_lens, s_lens
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _check_oracle(paths, lp, tok, t_lens, s_lens):
+    for j, (t_i, s_i) in enumerate(zip(t_lens, s_lens)):
+        want = [s for s, _ in jax_viterbi_numpy(lp[j, :t_i], tok[j, :s_i])]
+        assert list(paths[j, :t_i]) == want, f"row {j}"
+        assert (paths[j, t_i:] == want[-1]).all(), f"row {j}: frozen frames"
+
+
+@pytest.mark.parametrize("t_pad,s_pad,v,want", [
+    (499, 256, 32, "k1"),            # 10 s serving shape
+    (512, 256, 32, "k1"),            # K1_MAX_FRAMES itself
+    (513, 256, 32, "k2"),            # just past it: K2's on-chip bp fits
+    (2400, 128, 32, "k2"),           # long batch bucket, short transcripts
+    (7000, 128, 32, "k4"),           # K2's packed bp no longer fits
+    (1499, 768, 32, "k4"),           # 30 s, long transcript
+    (30000, 12032, 32, "k4"),        # 10 min char long-form
+    (180000, 11136, 32, "k4"),       # 60 min char long-form
+    (180000, 12672, 392, "k4"),      # 60 min phoneme long-form
+    (30000, 128, 392, "k3"),         # wide vocab, short transcript
+    (5000, 3500, 8000, "k1"),        # neither window fits: K1 reads no window
+])
+def test_select_tier_table(t_pad, s_pad, v, want):
+    assert viterbi_cuda.select_tier(t_pad, s_pad, v) == want
+    viterbi_cuda.check_fits(want, t_pad, s_pad, v)
+
+
+def test_select_tier_raises_past_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        viterbi_cuda.select_tier(100, 20000, 32)
+
+
+@pytest.mark.parametrize("tier,shape", [
+    ("k2", (100_000, 128, 32)), ("k3", (100, 4096, 32)), ("k4", (100, 128, 4096)),
+    ("k1", (100, 20_000, 32)),
+])
+def test_forced_tier_that_does_not_fit_raises(tier, shape):
+    with pytest.raises(ValueError, match="shared memory"):
+        viterbi_cuda.check_fits(tier, *shape)
+
+
+def test_raw_gather_rule_is_the_traffic_half_of_the_jax_rule():
+    """K4 over K3 where the raw [T, V_pad] read beats writing and reading a
+    gathered [T, S_pad] array; agrees with `_use_onehot_gather` on the
+    shapes its tests pin, except where the TPU's one-hot VMEM budget binds."""
+    for v, s_len in ((32, 5000), (392, 301), (392, 17), (392, 8000), (397, 12599)):
+        s_pad = -(-s_len // 128) * 128
+        assert viterbi_cuda.use_raw_gather(v, s_pad) == vp._use_onehot_gather(v, s_len)
+    assert viterbi_cuda.use_raw_gather(392, 21000 // 128 * 128 + 128)  # no VMEM cap here
+    assert not vp._use_onehot_gather(392, 21000)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_plain_emissions_and_batch_match_numpy_oracle(seed):
+    lp, tok, t_lens, s_lens = _batch(seed, 4, 37 + 9 * seed, 5 + seed, 30)
+    args = _torch(lp, tok, t_lens, s_lens)
+    emit = viterbi_ref.gather_emissions(args[0], args[1])
+    assert emit.shape == (4, lp.shape[1], 30) and emit.is_contiguous()
+    np.testing.assert_array_equal(
+        emit.numpy(), np.take_along_axis(lp, tok[:, None, :].repeat(lp.shape[1], 1), 2))
+    from_emit = viterbi_ref.viterbi_emissions_batch(emit, *args[1:]).numpy()
+    _check_oracle(from_emit, lp, tok, t_lens, s_lens)
+    np.testing.assert_array_equal(viterbi_ref.viterbi_batch(*args).numpy(), from_emit)
+
+
+def _jax_batch(lp, tok, t_lens, s_lens):
+    return np.asarray(vp.viterbi_pallas_batch(
+        jnp.asarray(lp), jnp.asarray(tok), jnp.asarray(t_lens), jnp.asarray(s_lens),
+        interpret=True))
+
+
+# (tier, b, T_pad, V, S_pad): ragged batches at the shapes that route the
+# JAX batch dispatch to each blocked kernel once VMEM_BUDGET_BYTES is patched
+BATCH_TIERS = [
+    ("k2", 3, 40, 9, 30),          # _KERNEL_BP_VMEM_BATCH
+    ("k3", 2, 48, 392, 17),        # _KERNEL_BP_HBM_BATCH: v_pad >= 2 * s_pad
+    ("k4", 2, 72, 392, 261),       # _KERNEL_BP_HBM_GATHER_BATCH, phoneme V
+    ("k4", 3, 41, 32, 60),         # _KERNEL_BP_HBM_GATHER_BATCH, char V
+]
+
+
+@pytest.mark.parametrize("tier,b,t_pad,v,s_pad", BATCH_TIERS)
+def test_plain_tier_matches_jax_blocked_batch_kernel(monkeypatch, tier, b, t_pad, v, s_pad):
+    """The JAX grid-over-batch tier (interpret mode) and the port's plain
+    version of the same tier give identical paths on every frame."""
+    t8 = -(-t_pad // 8) * 8
+    s128 = -(-s_pad // 128) * 128
+    # K2: emissions + bp exceed the budget, bp alone fits; K3/K4: nothing fits
+    monkeypatch.setattr(vp, "VMEM_BUDGET_BYTES", 6 * t8 * s128 if tier == "k2" else 1)
+    if tier != "k2":  # the gather rule decides only once bp leaves VMEM
+        assert vp._use_onehot_gather(v, s_pad) == (tier == "k4")
+    lp, tok, t_lens, s_lens = _batch(31 + t_pad, b, t_pad, v, s_pad)
+    want = _jax_batch(lp, tok, t_lens, s_lens)
+    got = viterbi_cuda.viterbi_batch(*_torch(lp, tok, t_lens, s_lens), tier=tier).numpy()
+    np.testing.assert_array_equal(got, want)
+    _check_oracle(got, lp, tok, t_lens, s_lens)
+
+
+@pytest.mark.parametrize("tier,v,s_len", [("k3", 392, 17), ("k4", 392, 301)])
+def test_plain_tier_matches_jax_single_hbm_kernel(tier, v, s_len):
+    """`viterbi_pallas_single_hbm` (K3 `_KERNEL_BP_HBM`, or K4
+    `_viterbi_hbm_gather`) against the port's plain version, one utterance
+    with t_len < T."""
+    assert vp._use_onehot_gather(v, s_len) == (tier == "k4")
+    rng = np.random.default_rng(s_len)
+    t, t_len = 90, 83
+    lp = _log_probs(rng, 1, t, v)[0]
+    tok = rng.integers(0, v, size=s_len).astype(np.int32)
+    want = np.asarray(vp.viterbi_pallas_single_hbm(
+        jnp.asarray(lp), jnp.asarray(tok), jnp.int32(t_len), jnp.int32(s_len),
+        interpret=True))
+    tok_pad = np.zeros(128 * -(-s_len // 128), np.int32)
+    tok_pad[:s_len] = tok
+    got = viterbi_cuda.viterbi_single(torch.from_numpy(lp), torch.from_numpy(tok_pad),
+                                      t_len, s_len, tier=tier).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_plain_tier_matches_jax_single_bp_vmem_kernel(monkeypatch):
+    """`viterbi_pallas_single`'s middle tier (K2 `_KERNEL_BP_VMEM`)."""
+    rng = np.random.default_rng(3)
+    t, v, s_len = 56, 7, 40
+    monkeypatch.setattr(vp, "VMEM_BUDGET_BYTES", 6 * t * 128)
+    lp = _log_probs(rng, 1, t, v)[0]
+    tok = rng.integers(0, v, size=s_len).astype(np.int32)
+    want = np.asarray(vp.viterbi_pallas_single(
+        jnp.asarray(lp), jnp.asarray(tok), jnp.int32(t), jnp.int32(s_len), interpret=True))
+    got = viterbi_cuda.viterbi_single(torch.from_numpy(lp), torch.from_numpy(tok), t, s_len,
+                                      tier="k2").numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("tier", viterbi_cuda.TIERS)
+def test_forced_tier_on_cpu_runs_the_plain_version_without_counting(tier):
+    lp, tok, t_lens, s_lens = _batch(9, 3, 33, 6, 20)
+    before = dict(viterbi_cuda.launches)
+    got = viterbi_cuda.viterbi_batch(*_torch(lp, tok, t_lens, s_lens), tier=tier).numpy()
+    assert viterbi_cuda.launches == before
+    _check_oracle(got, lp, tok, t_lens, s_lens)
+
+
+def test_wrapper_rejects_unknown_tiers():
+    lp, tok, t_lens, s_lens = _torch(*_batch(1, 2, 8, 4, 5))
+    with pytest.raises(ValueError, match="tier"):
+        viterbi_cuda.viterbi_batch(lp, tok, t_lens, s_lens, tier="k5")
+    emit = viterbi_ref.gather_emissions(lp, tok)
+    with pytest.raises(ValueError, match="pre-gathered"):
+        viterbi_cuda.viterbi_emissions_batch(emit, tok, t_lens, s_lens, tier="k4")
+    np.testing.assert_array_equal(
+        viterbi_cuda.viterbi_emissions_batch(emit, tok, t_lens, s_lens, tier="k2").numpy(),
+        viterbi_ref.viterbi_batch(lp, tok, t_lens, s_lens).numpy())

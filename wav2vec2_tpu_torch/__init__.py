@@ -6,11 +6,14 @@ The module layout and function names mirror the JAX package, which stays
 the reference. The port imports torch and numpy only: never jax, the JAX
 package, safetensors or transformers.
 
-First slice: the wav2vec2-base CTC graph through the single-utterance
-entry (`ForcedAlignerBuilder`) and the padded-batch entry
-(`BatchAligner`), with the banded CTC Viterbi kernel (K1) written in CUDA
-(`csrc/viterbi.cu`).
+Ported so far: the wav2vec2-base CTC graph through the single-utterance
+entry (`ForcedAlignerBuilder`), the padded-batch entry (`BatchAligner`)
+and the long-form entry (`align_longform`), with the four banded CTC
+Viterbi kernels written in CUDA: K1 (`csrc/viterbi.cu`) and the blocked
+tiers K2, K3, K4 (`csrc/viterbi_blocked.cu`).
 """
+
+from .align.longform import align_longform
 
 from .config import (
     AlignerHyperParams,
@@ -64,6 +67,7 @@ __all__ = [
     "Wav2Vec2ModelConfig",
     "WordConfidenceStats",
     "WordTiming",
+    "align_longform",
     "load_vocab",
     "normalize_audio",
 ]

@@ -104,10 +104,17 @@ class Wav2Vec2ModelConfig:
     def frame_stride_ms(self, sample_rate: int) -> float:
         """Frame stride in ms = product(conv_stride) / sample_rate * 1000
         (20 ms for wav2vec2 at 16 kHz)."""
+        return self.frame_stride_samples() / sample_rate * 1000.0
+
+    def frame_stride_samples(self) -> int:
+        """Input samples per output frame — the chunk-alignment unit of the
+        long-form path (320 for wav2vec2). The JAX package also covers the
+        mel frontend and adapter downsampling; the port refuses both
+        configs, so the conv strides are the whole product."""
         stride_samples = 1
         for s in self.conv_stride:
             stride_samples *= s
-        return stride_samples / sample_rate * 1000.0
+        return stride_samples
 
     def conv_output_length(self, num_samples: int) -> int:
         """Output frames T for `num_samples` input samples (per conv layer:

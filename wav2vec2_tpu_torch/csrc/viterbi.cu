@@ -27,8 +27,10 @@
 // - backpointers are uint8 in device memory ([B, T_pad, S_pad], allocated
 //   by the caller); the final-state rule and the backtrace run on one
 //   thread at the end.
-// Later work: backpointers in shared memory where T_pad*S_pad fits, warp
-// shuffles for the s-1/s-2 shifts, and several utterances per block.
+// Longer utterances take the blocked tiers of csrc/viterbi_blocked.cu
+// (backpointers in shared memory where they fit, a blocked backtrace where
+// they do not). Later work: warp shuffles for the s-1/s-2 shifts, and
+// several utterances per block.
 //
 // Bit-identity: every cell is one IEEE f32 add best + emit (__fadd_rn, so
 // no contraction), -inf + x stays -inf, and comparisons are strict. Build

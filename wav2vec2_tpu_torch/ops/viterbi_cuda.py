@@ -1,15 +1,25 @@
-"""K1, the banded CTC Viterbi kernel, in CUDA C++ for Hopper.
+"""The banded CTC Viterbi kernels K1–K4, in CUDA C++ for Hopper.
 
-`viterbi_batch` is the wrapper of `csrc/viterbi.cu`, the port of
-`wav2vec2_tpu/ops/viterbi_pallas.py::_viterbi_kernel_resident`. For tensors
-on the CPU it runs the plain PyTorch version (`ops.viterbi_ref.
-viterbi_batch`); for CUDA tensors it launches the kernel or raises — there
-is no fallback.
+- K1 (`csrc/viterbi.cu`), the port of `wav2vec2_tpu/ops/viterbi_pallas.py::
+  _viterbi_kernel_resident`: reads the log-probs, bp in device memory, a
+  one-thread backtrace.
+- K2, K3, K4 (`csrc/viterbi_blocked.cu`), the ports of
+  `_make_blocked_kernel`'s three instances: 8-frame blocks streamed
+  through a double-buffered shared-memory window. K2 reads pre-gathered
+  emissions and keeps 2-bit bp in shared memory; K3 reads pre-gathered
+  emissions with uint8 bp in device memory; K4 reads the raw log-probs with
+  uint8 bp in device memory. K3 and K4 backtrace by 8-frame blocks.
 
-The source is compiled at first use with `nvcc` into a shared library with
-a plain C interface under `build/torch_kernels/` at the repository root
-(rebuilt when the source is newer), and loaded with `ctypes`. Pointers and
-the stream go in as `ctypes.c_void_p`.
+`viterbi_batch` and `viterbi_single` pick a tier with `select_tier` (or take
+`tier=`). For tensors on the CPU they run the plain PyTorch version of that
+tier (`ops.viterbi_ref`); for CUDA tensors they launch the kernel or raise —
+no fallback to another tier or to a plain version. `launches` counts the
+launches per kernel.
+
+Both sources are compiled at first use with `nvcc` into one shared library
+with a plain C interface under `build/torch_kernels/` at the repository
+root (rebuilt when a source is newer), and loaded with `ctypes`. Pointers
+and the stream go in as `ctypes.c_void_p`.
 """
 
 from __future__ import annotations
@@ -26,12 +36,21 @@ import torch
 
 from . import viterbi_ref
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "viterbi.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = (CSRC / "viterbi.cu", CSRC / "viterbi_blocked.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-LIBRARY = BUILD_DIR / "libviterbi_k1.so"
+LIBRARY = BUILD_DIR / "libviterbi.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_SMEM_BYTES = 232_448  # per block on H100, opt-in dynamic shared memory
+
+TIERS = ("k1", "k2", "k3", "k4")
+# Longest padded T that stays on K1. K4 measured faster than K1 from
+# T = 599 up (chip_smoke.py's tier-crossover phase, NVIDIA H100 80GB HBM3 at
+# 700 W; times in PERF.md), so this is the floor of 512 frames that keeps
+# the 10 s serving shape (T = 499) on K1.
+K1_MAX_FRAMES = 512
+launches = {tier: 0 for tier in TIERS}
 
 
 def _nvcc() -> str:
@@ -46,15 +65,15 @@ def _nvcc() -> str:
 
 
 def build(force: bool = False) -> dict:
-    """Compile the kernel library if it is missing or older than its source.
+    """Compile the kernel library if it is missing or older than a source.
     Returns {"library", "seconds", "compiler_output"} (seconds is 0.0 when
     the library was up to date)."""
-    if (not force and LIBRARY.exists()
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
+    newest = max(src.stat().st_mtime for src in SOURCES)
+    if not force and LIBRARY.exists() and LIBRARY.stat().st_mtime >= newest:
         return {"library": str(LIBRARY), "seconds": 0.0, "compiler_output": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = LIBRARY.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -71,13 +90,86 @@ def build(force: bool = False) -> dict:
 def _library() -> ctypes.CDLL:
     build()
     lib = ctypes.CDLL(str(LIBRARY))
-    lib.viterbi_k1_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p
-    ]
-    lib.viterbi_k1_launch.restype = ctypes.c_int
+    for tier in TIERS:
+        launch = getattr(lib, f"viterbi_{tier}_launch")
+        launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        launch.restype = ctypes.c_int
     lib.viterbi_k1_smem_bytes.argtypes = [ctypes.c_int]
     lib.viterbi_k1_smem_bytes.restype = ctypes.c_size_t
+    for tier in TIERS[1:]:
+        size = getattr(lib, f"viterbi_{tier}_smem_bytes")
+        size.argtypes = [ctypes.c_int] * 3
+        size.restype = ctypes.c_size_t
     return lib
+
+
+def library_smem_bytes(tier: str, t_pad: int, s_pad: int, v: int) -> int:
+    """`smem_bytes` as the compiled kernels compute it."""
+    lib = _library()
+    if tier == "k1":
+        return lib.viterbi_k1_smem_bytes(s_pad)
+    return getattr(lib, f"viterbi_{tier}_smem_bytes")(t_pad, s_pad, v)
+
+
+def _round_up4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def smem_bytes(tier: str, t_pad: int, s_pad: int, v: int) -> int:
+    """Shared memory one block of `tier` needs: the sums of the
+    `viterbi_*_smem_bytes` functions of the CUDA sources (`library_smem_bytes`
+    reads those; chip_smoke.py holds the two equal)."""
+    w = _round_up4(s_pad)
+    if tier == "k1":
+        return 12 * s_pad  # two f32 rows + int32 tokens
+    rows_and_tokens = 12 * w
+    if tier == "k2":
+        return 64 * w + rows_and_tokens + t_pad * (w // 4)
+    window = 64 * (_round_up4(v) if tier == "k4" else w)
+    return window + rows_and_tokens + 128  # + the [8, 16] backtrace window
+
+
+def use_raw_gather(v: int, s_pad: int) -> bool:
+    """K4 over K3: the traffic half of the JAX `_use_onehot_gather`. K4
+    reads [T, V_pad] raw log-probs; K3 needs a gathered [T, S_pad] emission
+    array written and read again. (The TPU's one-hot VMEM budget has no
+    counterpart here: K4 gathers by indexed loads.)"""
+    return _round_up4(v) < 2 * s_pad
+
+
+def select_tier(t_pad: int, s_pad: int, v: int) -> str:
+    """The Hopper tier rule, the counterpart of the dispatch in the JAX
+    `viterbi_pallas_single`/`viterbi_pallas_batch`, with shared-memory
+    budgets in place of the TPU's VMEM: K1 up to K1_MAX_FRAMES; else K2
+    when its on-chip bp fits; else K4 or K3 by `use_raw_gather`, the other
+    one if the preferred window does not fit, and K1 (no window) if neither
+    does. Raises ValueError when no tier fits: the DP rows and tokens of
+    S_pad alone exceed shared memory above S_pad ≈ 19 000."""
+    fits = {t: smem_bytes(t, t_pad, s_pad, v) <= MAX_SMEM_BYTES for t in TIERS}
+    if t_pad <= K1_MAX_FRAMES and fits["k1"]:
+        return "k1"
+    if fits["k2"]:
+        return "k2"
+    order = ("k4", "k3") if use_raw_gather(v, s_pad) else ("k3", "k4")
+    for tier in (*order, "k1"):
+        if fits[tier]:
+            return tier
+    raise ValueError(
+        f"S_pad={s_pad} (V={v}) needs {smem_bytes('k1', t_pad, s_pad, v)} B of "
+        f"shared memory per block for its DP rows and tokens, more than "
+        f"{MAX_SMEM_BYTES}"
+    )
+
+
+def check_fits(tier: str, t_pad: int, s_pad: int, v: int) -> None:
+    """Raise ValueError if `tier` at this shape needs more shared memory
+    than a block can have: such a launch would be refused."""
+    need = smem_bytes(tier, t_pad, s_pad, v)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{tier} at T_pad={t_pad}, S_pad={s_pad}, V={v} needs {need} B of "
+            f"shared memory per block, more than {MAX_SMEM_BYTES}"
+        )
 
 
 def _check_inputs(log_probs, tokens, t_lens, s_lens) -> None:
@@ -107,55 +199,90 @@ def _check_inputs(log_probs, tokens, t_lens, s_lens) -> None:
         )
 
 
+def _launch(tier: str, src, tokens, t_lens, s_lens, v: int) -> torch.Tensor:
+    """One launch of `tier` on the current stream: src is the log-probs
+    (K1, K4) or the gathered emissions (K2, K3), checked by the caller."""
+    b, t_pad = src.shape[:2]
+    s_pad = tokens.shape[1]
+    check_fits(tier, t_pad, s_pad, v)
+    lib = _library()
+    dev = src.device
+    if tier == "k2":
+        bp = torch.empty(0, dtype=torch.uint8, device=dev)
+    elif tier == "k1":
+        bp = torch.empty((b, t_pad, s_pad), dtype=torch.uint8, device=dev)
+    else:
+        bp = torch.empty((b, t_pad, _round_up4(s_pad)), dtype=torch.uint8, device=dev)
+    paths = torch.empty((b, t_pad), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, f"viterbi_{tier}_launch")(
+            src.data_ptr(), tokens.data_ptr(), t_lens.data_ptr(), s_lens.data_ptr(),
+            bp.data_ptr(), paths.data_ptr(), b, t_pad, v, s_pad, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"viterbi_{tier} launch failed: cudaError {err}")
+    launches[tier] += 1
+    return paths
+
+
+def viterbi_emissions_batch(
+    emit: torch.Tensor,
+    tokens: torch.Tensor,
+    t_lens: torch.Tensor,
+    s_lens: torch.Tensor,
+    tier: str = "k3",
+) -> torch.Tensor:
+    """K2 or K3 alone, over pre-gathered emissions [B, T_pad, S_pad] f32
+    (`viterbi_ref.gather_emissions`); CPU tensors take their plain version
+    `viterbi_ref.viterbi_emissions_batch`."""
+    if tier not in ("k2", "k3"):
+        raise ValueError(f"{tier!r} does not read pre-gathered emissions")
+    if emit.device.type == "cpu":
+        return viterbi_ref.viterbi_emissions_batch(emit, tokens, t_lens, s_lens)
+    if emit.device.type != "cuda":
+        raise ValueError(f"no Viterbi kernel for device {emit.device}")
+    _check_inputs(emit, tokens, t_lens, s_lens)
+    if emit.shape[2] != tokens.shape[1]:
+        raise ValueError(f"emissions {tuple(emit.shape)} do not match tokens "
+                         f"{tuple(tokens.shape)}")
+    return _launch(tier, emit, tokens, t_lens, s_lens, 0)
+
+
 def viterbi_batch(
     log_probs: torch.Tensor,
     tokens: torch.Tensor,
     t_lens: torch.Tensor,
     s_lens: torch.Tensor,
+    tier: str | None = None,
 ) -> torch.Tensor:
     """Banded CTC Viterbi over a padded batch: log_probs [B, T_pad, V] f32,
     tokens [B, S_pad] i32, t_lens/s_lens [B] i32 → paths [B, T_pad] i32
-    (frames >= t_len hold the final state). On CUDA tensors: one launch on
-    the current stream, no synchronisation; `viterbi_batch.launches` counts
-    the launches."""
+    (frames >= t_len hold the final state). `tier` is one of TIERS, or None
+    for `select_tier`. On CUDA tensors: one launch on the current stream
+    (K2 and K3 after a `torch.gather` of the emissions), no
+    synchronisation."""
+    if tier is not None and tier not in TIERS:
+        raise ValueError(f"unknown Viterbi tier {tier!r}; want one of {TIERS}")
+    if log_probs.device.type == "cuda":
+        _check_inputs(log_probs, tokens, t_lens, s_lens)
+        tier = tier or select_tier(log_probs.shape[1], tokens.shape[1], log_probs.shape[2])
+    if tier in ("k2", "k3"):
+        emit = viterbi_ref.gather_emissions(log_probs, tokens)
+        return viterbi_emissions_batch(emit, tokens, t_lens, s_lens, tier)
     if log_probs.device.type == "cpu":
         return viterbi_ref.viterbi_batch(log_probs, tokens, t_lens, s_lens)
     if log_probs.device.type != "cuda":
         raise ValueError(f"no Viterbi kernel for device {log_probs.device}")
-    _check_inputs(log_probs, tokens, t_lens, s_lens)
-    b, t_pad, vocab = log_probs.shape
-    s_pad = tokens.shape[1]
-    lib = _library()
-    smem = lib.viterbi_k1_smem_bytes(s_pad)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"S_pad={s_pad} needs {smem} B of shared memory per block, more "
-            f"than {MAX_SMEM_BYTES}; longer transcripts need the blocked tiers"
-        )
-    dev = log_probs.device
-    bp = torch.empty((b, t_pad, s_pad), dtype=torch.uint8, device=dev)
-    paths = torch.empty((b, t_pad), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.viterbi_k1_launch(
-            log_probs.data_ptr(), tokens.data_ptr(), t_lens.data_ptr(),
-            s_lens.data_ptr(), bp.data_ptr(), paths.data_ptr(),
-            b, t_pad, vocab, s_pad, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"viterbi_k1 launch failed: cudaError {err}")
-    viterbi_batch.launches += 1
-    return paths
-
-
-viterbi_batch.launches = 0
+    return _launch(tier, log_probs, tokens, t_lens, s_lens, log_probs.shape[2])
 
 
 def viterbi_single(
-    log_probs: torch.Tensor, tokens: torch.Tensor, t_len: int, s_len: int
+    log_probs: torch.Tensor, tokens: torch.Tensor, t_len: int, s_len: int,
+    tier: str | None = None,
 ) -> torch.Tensor:
     """One utterance through the batch wrapper: log_probs [T_pad, V],
     tokens [S_pad] → path [T_pad]."""
     lens = torch.tensor([[t_len], [s_len]], dtype=torch.int32,
                         device=log_probs.device)
-    return viterbi_batch(log_probs[None], tokens[None], lens[0], lens[1])[0]
+    return viterbi_batch(log_probs[None], tokens[None], lens[0], lens[1], tier)[0]

@@ -4,12 +4,18 @@
   `wav2vec2_tpu.ops.viterbi_ref` cell for cell. The single-utterance path
   runs it below `kernel_dp_threshold`, and the tests hold every other
   version bit-identical to it.
-- `viterbi_batch`: the plain PyTorch version of the device DP — a Python
-  loop over frames with tensor ops over [B, S_pad], the semantics of the
-  JAX `viterbi_single`/`viterbi_batch` (`lax.scan` over time). The K1 CUDA
-  kernel (ops/viterbi_cuda.py) is compared against it on the card, and its
-  wrapper (`viterbi_batch`, and `viterbi_single` for one utterance) runs it
-  for CPU tensors.
+- `viterbi_emissions_batch`: the plain PyTorch version of the device DP
+  over pre-gathered emissions E[b, t, s] = log_probs[b, t, tokens[b, s]] —
+  a Python loop over frames with tensor ops over [B, S_pad], the semantics
+  of the JAX `viterbi_single`/`viterbi_batch` (`lax.scan` over time). It is
+  the plain version of the K2 and K3 kernels, which read such emissions.
+- `gather_emissions`: that E, one `torch.gather` (XLA gathered it outside
+  the TPU kernels too).
+- `viterbi_batch`: `gather_emissions` then `viterbi_emissions_batch` — the
+  plain version of the K1 and K4 kernels, which read the log-probs.
+
+The CUDA kernels (ops/viterbi_cuda.py) are compared against these on the
+card, and their wrappers run them for CPU tensors.
 
 DP semantics (bit-for-bit in every version):
 
@@ -103,29 +109,35 @@ def _shift_down(rows: torch.Tensor, k: int) -> torch.Tensor:
     return out
 
 
-def viterbi_batch(
-    log_probs: torch.Tensor,
+def gather_emissions(log_probs: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """E[b, t, s] = log_probs[b, t, tokens[b, s]]: [B, T_pad, V] f32 and
+    [B, S_pad] int → [B, T_pad, S_pad] f32 (contiguous)."""
+    b, t_pad, _ = log_probs.shape
+    tok = tokens.long()
+    return torch.gather(log_probs.float(), 2,
+                        tok[:, None, :].expand(b, t_pad, tok.shape[1])).contiguous()
+
+
+def viterbi_emissions_batch(
+    emit: torch.Tensor,
     tokens: torch.Tensor,
     t_lens: torch.Tensor,
     s_lens: torch.Tensor,
 ) -> torch.Tensor:
-    """Plain PyTorch banded Viterbi over a padded batch.
+    """Plain PyTorch banded Viterbi over pre-gathered emissions.
 
-    log_probs [B, T_pad, V] f32; tokens [B, S_pad] int (any values past
-    s_len that index V); t_lens, s_lens [B] int. Returns paths [B, T_pad]
-    int32; frames >= t_len hold the final state."""
-    b, t_pad, _ = log_probs.shape
-    s_pad = tokens.shape[1]
-    dev = log_probs.device
-    lp = log_probs.float()
+    emit [B, T_pad, S_pad] f32; tokens [B, S_pad] int (only the skip rule
+    reads them); t_lens, s_lens [B] int. Returns paths [B, T_pad] int32;
+    frames >= t_len hold the final state."""
+    b, t_pad, s_pad = emit.shape
+    dev = emit.device
+    emit = emit.float()
     tok = tokens.long()
     t_lens = t_lens.long().to(dev)
     s_lens = s_lens.long().to(dev)
     s_idx = torch.arange(s_pad, device=dev)[None, :]
     neg = torch.tensor(NEG_INF, device=dev)
 
-    # emissions E[b, t, s] = lp[b, t, tokens[b, s]]
-    emit = torch.gather(lp, 2, tok[:, None, :].expand(b, t_pad, s_pad))
     prev = torch.where(s_idx == 0, emit[:, 0], neg)
     prev = torch.where((s_idx == 1) & (s_lens[:, None] > 1), emit[:, 0], prev)
 
@@ -167,3 +179,18 @@ def viterbi_batch(
         if t >= 1:
             s = s - bp[rows, t, s].long()
     return paths
+
+
+def viterbi_batch(
+    log_probs: torch.Tensor,
+    tokens: torch.Tensor,
+    t_lens: torch.Tensor,
+    s_lens: torch.Tensor,
+) -> torch.Tensor:
+    """Plain PyTorch banded Viterbi over a padded batch.
+
+    log_probs [B, T_pad, V] f32; tokens [B, S_pad] int (any values past
+    s_len that index V); t_lens, s_lens [B] int. Returns paths [B, T_pad]
+    int32; frames >= t_len hold the final state."""
+    return viterbi_emissions_batch(gather_emissions(log_probs, tokens), tokens,
+                                   t_lens, s_lens)

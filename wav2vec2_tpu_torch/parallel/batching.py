@@ -1,10 +1,14 @@
 """Batched alignment engine (counterpart of `wav2vec2_tpu.parallel.batching`).
 
 Utterances are bucketed by (audio length, token length), padded, and each
-bucket goes through forward → log-softmax → the K1 Viterbi kernel →
-per-frame evidence on the device. Only T-length vectors (path, emission
-log-prob, margin, blank prob, entropy) come back to the host; grouping runs
-there per utterance.
+bucket goes through forward → log-softmax → the Viterbi kernel (K1 at the
+serving shapes; `ops.viterbi_cuda.select_tier` picks the tier) → per-frame
+evidence on the device. Only T-length vectors (path, emission log-prob,
+margin, blank prob, entropy) come back to the host; grouping runs there per
+utterance. On a CUDA device those vectors are copied to pinned host buffers
+on a side stream as soon as the batch's evidence is enqueued, so the copy
+(and the host grouping that waits only for it) overlaps the next batch's
+forward.
 
 Not ported yet: `align_stream`, the device mesh, int8 serving and the
 flash-attention switch.
@@ -122,6 +126,26 @@ def _as_device(x, dtype, device) -> torch.Tensor:
     return x.to(device=device, dtype=dtype or x.dtype)
 
 
+class BatchHandles(tuple):
+    """What `submit_padded_batch` returns: the device tensors (paths,
+    t_lens, emit_lp, margin, blank_prob, entropy[, log_probs]), as a tuple.
+    On a CUDA device it also carries `host`, pinned host copies of the first
+    six, and `copied`, the event that marks those copies done; elsewhere
+    both are None."""
+
+    host: tuple[torch.Tensor, ...] | None = None
+    copied: torch.cuda.Event | None = None
+
+
+def _host_arrays(handles) -> tuple[np.ndarray, ...]:
+    """The first six handles as numpy arrays: the pinned host copies once
+    their event has completed, or a plain copy of each."""
+    if getattr(handles, "copied", None) is not None:
+        handles.copied.synchronize()
+        return tuple(h.numpy() for h in handles.host)
+    return tuple(h.cpu().numpy() for h in handles[:6])
+
+
 class BatchAligner:
     """High-throughput batch alignment on one torch device.
 
@@ -157,6 +181,8 @@ class BatchAligner:
         self.stride_ms = model_cfg.frame_stride_ms(sample_rate_hz)
         self.hp = hp or AlignerHyperParams()
         self.normalize_on_device = normalize_on_device
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
 
     def _tokenize(self, transcript: str):
         return build_token_sequence_case_aware(
@@ -168,9 +194,10 @@ class BatchAligner:
                             return_log_probs=False):
         """Enqueue one padded batch: audio [B, N_pad] (pre-normalized f32,
         or raw int16/f32 with normalize_on_device), audio_lens [B], tokens
-        [B, S_pad], s_lens [B], as numpy arrays or tensors. Returns device
-        tensors (paths, t_lens, emit_lp, margin, blank_prob, entropy[,
-        log_probs]) without synchronising."""
+        [B, S_pad], s_lens [B], as numpy arrays or tensors. Returns
+        `BatchHandles` of device tensors (paths, t_lens, emit_lp, margin,
+        blank_prob, entropy[, log_probs]) without synchronising; on a CUDA
+        device their host copies are already enqueued."""
         dev = self.device
         audio = _as_device(audio, None, dev)
         audio_lens = _as_device(audio_lens, torch.int32, dev)
@@ -186,20 +213,38 @@ class BatchAligner:
         t_lens = frame_lengths(self.cfg, audio_lens).to(torch.int32)
         paths = viterbi_cuda.viterbi_batch(log_probs, tokens, t_lens, s_lens)
         out = (paths, t_lens, *evidence_batch(log_probs, tokens, paths, self.blank_id))
-        return out + (log_probs,) if return_log_probs else out
+        handles = BatchHandles(out + (log_probs,) if return_log_probs else out)
+        if self._copy_stream is not None:
+            handles.host, handles.copied = self._copy_to_host(out)
+        return handles
+
+    def _copy_to_host(self, tensors):
+        """Non-blocking copies of `tensors` into pinned host buffers on the
+        side copy stream, after the work enqueued so far on the compute
+        stream. Returns (host tensors, event recorded after the copies)."""
+        enqueued = torch.cuda.Event()
+        enqueued.record(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._copy_stream):
+            self._copy_stream.wait_event(enqueued)
+            host = []
+            for x in tensors:
+                x.record_stream(self._copy_stream)  # keep its memory until copied
+                buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                host.append(buf.copy_(x, non_blocking=True))
+            copied = torch.cuda.Event()
+            copied.record(self._copy_stream)
+        return tuple(host), copied
 
     def align_padded_batch(self, audio, audio_lens, tokens, s_lens):
         """Host tuples (paths, t_lens, emit_lp, margin, blank_prob,
         entropy)."""
-        out = self.submit_padded_batch(audio, audio_lens, tokens, s_lens)
-        return tuple(x.cpu().numpy() for x in out)
+        return _host_arrays(self.submit_padded_batch(audio, audio_lens, tokens, s_lens))
 
     def group_batch(self, seqs, handles) -> list[AlignmentOutput]:
-        """Copy one submitted batch's vectors to the host and group the
-        first len(seqs) rows (seqs[j] is row j's TokenSequence)."""
-        paths, t_lens, emit_lp, margin, blank_prob, entropy = (
-            h.cpu().numpy() for h in handles[:6]
-        )
+        """Group the first len(seqs) rows of one submitted batch (seqs[j] is
+        row j's TokenSequence). With host copies in flight it waits for
+        those alone; otherwise it copies the vectors to the host."""
+        paths, t_lens, emit_lp, margin, blank_prob, entropy = _host_arrays(handles)
         outputs = []
         for j, seq in enumerate(seqs):
             t_i = int(t_lens[j])
