@@ -4,26 +4,33 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from `wav2vec2_tpu_torch/csrc/` (K1 and the
-blocked tiers K2, K3, K4), holds each against its plain PyTorch version and
-the numpy oracle (K4 also against K1 at hour scale), and drives the port's
-paths at the full width of wav2vec2-base (random weights from a numpy seed)
-through the entry points a user calls:
+It builds the CUDA kernels from `wav2vec2_tpu_torch/csrc/` with one
+`nvcc` call (the Viterbi kernel K1, its blocked tiers K2, K3, K4, and the
+fused rel-pos attention kernel K5), holds each against its plain PyTorch
+version (the Viterbi kernels also against the numpy oracle, K4 against K1
+at hour scale), and drives the port's paths through the entry points a
+user calls, with random weights from a numpy seed:
 
-- `BatchAligner.submit_padded_batch` on 32 × 10 s with the gates of
-  `bench.py` (K1), and on a long bucket that selects K2;
-- `ForcedAlignerBuilder` on 3 requests (K1);
-- `align_longform` on 10 min of audio with a 1 200-word transcript (K4),
-  with gates (a)–(d), and on 3 min with a phoneme-size vocabulary and a
-  short transcript (K3).
+- wav2vec2-base at full width: `BatchAligner.submit_padded_batch` on
+  32 × 10 s with the gates of `bench.py` (K1), and on a long bucket that
+  selects K2; `ForcedAlignerBuilder` on 3 requests (K1); `align_longform`
+  on 10 min of audio with a 1 200-word transcript (K4), with gates
+  (a)–(d), and on 3 min with a phoneme-size vocabulary and a short
+  transcript (K3);
+- wav2vec2-conformer-rel-pos-large at full width and depth:
+  `BatchAligner.submit_padded_batch` on 32 × 10 s with the gates of
+  `bench.py` (K5 once per layer and forward, K1), the f32 forward through
+  K5 against the f32 factorized forward, and `ForcedAlignerBuilder` on a
+  4-block model directory (no K5, as in the JAX package).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. It times the kernels (CUDA events) beside their plain
-versions and their bounds, the forward, the long-form path and the batch
-path with its drain. Every failure raises and the exit code is non-zero;
-without a CUDA device it exits non-zero before running anything. The line
-before the last is the `kernels` JSON object; the last line of standard
-output is one JSON object naming the device.
+versions, their bounds and, for K5, one PyTorch call computing the same
+function; the forwards, the long-form path and the batch paths with their
+drain. Every failure raises and the exit code is non-zero; without a CUDA
+device it exits non-zero before running anything. The line before the
+last is the `kernels` JSON object; the last line of standard output is one
+JSON object naming the device.
 """
 
 from __future__ import annotations
@@ -47,6 +54,17 @@ BASE_CONFIG = dict(
     pad_token_id=0, vocab_size=32, do_stable_layer_norm=False,
     feat_extract_norm="group", conv_bias=False,
 )
+# wav2vec2-conformer-rel-pos-large-960h (wav2vec2_tpu/models/presets.py:234-247)
+CONFORMER_CONFIG = dict(
+    model_type="wav2vec2-conformer",
+    hidden_size=1024, num_hidden_layers=24, num_attention_heads=16,
+    intermediate_size=4096, conv_dim=[512] * 7,
+    conv_kernel=[10, 3, 3, 3, 3, 2, 2], conv_stride=[5, 2, 2, 2, 2, 2, 2],
+    num_conv_pos_embeddings=128, num_conv_pos_embedding_groups=16,
+    pad_token_id=0, vocab_size=32, feat_extract_norm="layer", conv_bias=True,
+    position_embeddings_type="relative", hidden_act="swish",
+    conv_depthwise_kernel_size=31, max_source_positions=5000,
+)
 WORDS = ["THE", "QUICK", "BROWN", "FOX", "JUMPS", "OVER", "LAZY", "DOG",
          "WHILE", "SINGING", "ANCIENT", "MELODIES", "UNDER", "BRIGHT",
          "WINTER", "STARS", "NEAR", "FROZEN", "RIVERS", "TONIGHT"]
@@ -60,7 +78,11 @@ HOUR_FRAMES = 180_000
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12  # dense tensor-core rate
 DP_OPS_PER_CELL = 4  # two compare-selects, the skip-rule test, one add
+# K5 against its plain version, relative to the largest output: the JAX
+# package's own kernel bounds (tests/test_flash_attention.py)
+FLASH_REL_BOUND = {"float32": 2e-5, "bfloat16": 3e-2}
 
 
 def make_vocab() -> dict[str, int]:
@@ -244,19 +266,20 @@ def interleaved_ms(kernel, plain, kernel_repeats, plain_repeats):
 
 
 def reset_launches():
-    from wav2vec2_tpu_torch.ops import viterbi_cuda
+    from wav2vec2_tpu_torch.ops import flash_attention, viterbi_cuda
 
-    for tier in viterbi_cuda.launches:
-        viterbi_cuda.launches[tier] = 0
+    for counts in (viterbi_cuda.launches, flash_attention.launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def read_launches():
     import torch
 
-    from wav2vec2_tpu_torch.ops import viterbi_cuda
+    from wav2vec2_tpu_torch.ops import flash_attention, viterbi_cuda
 
     torch.cuda.synchronize()
-    return dict(viterbi_cuda.launches)
+    return {**viterbi_cuda.launches, **flash_attention.launches}
 
 
 def batch_inputs(rng, vocab, batch, seconds, n_words=None, s_pad=S_PAD):
@@ -274,7 +297,8 @@ def batch_inputs(rng, vocab, batch, seconds, n_words=None, s_pad=S_PAD):
     return seqs, audio, a_l, tokens, s_l
 
 
-def run_batch_entry(device, cfg, params, vocab, batch, seconds, n_check):
+def run_batch_entry(device, cfg, params, vocab, batch, seconds, n_check,
+                    label="wav2vec2-base"):
     """The padded-batch entry at bf16 with the three gates of bench.py:
     (a) kernel paths == viterbi_numpy on the same log-probs; (b) grouping
     from device evidence vs the host oracle grouping: all words within one
@@ -343,7 +367,8 @@ def run_batch_entry(device, cfg, params, vocab, batch, seconds, n_check):
                              f"p99|Δ|={p99_d} (cap 0.3)")
     if not all(len(w) > 0 for w in outs):
         raise AssertionError("an utterance aligned to no words")
-    print(f"batch entry: {batch} x {seconds:g} s bf16, gates passed: (a) paths == viterbi_numpy "
+    print(f"batch entry, {label}: {batch} x {seconds:g} s bf16, gates passed: (a) paths == "
+          f"viterbi_numpy "
           f"({n_check} utts); (b) grouping {exact}/{total} exact, {within_one}/{total} within "
           f"one frame; (c) bf16 vs f32 log-probs mean|Δ|={mean_d} p99|Δ|={p99_d}, words equal")
     return aligner, inputs
@@ -699,6 +724,305 @@ def time_batch_path(aligner, vocab, batch, repeats):
             wait_s / repeats * 1e3, group_s / repeats * 1e3)
 
 
+def flash_cases():
+    """(name, B, NH, T, hd, dtype, rel, masked) for K5 against its plain
+    version: both dtypes, rel on and off, masked and unmasked, at odd T
+    (37 and 255 pad to 256, 257 and 499 to 512, 1 499 — the 30 s chunk — to
+    1 536) and head dims 32, 64, 128 and 80 (zero-filled to the 128-wide
+    template); then the slice's shape with B cut to 4 (bf16) and 2 (f32)."""
+    cases = []
+    for t, hd in ((37, 32), (255, 64), (257, 128), (499, 64), (1499, 32), (100, 80)):
+        for dtype in ("float32", "bfloat16"):
+            for rel, masked in ((True, True), (True, False), (False, True), (False, False)):
+                cases.append((f"T={t} hd={hd} {dtype} rel={int(rel)} mask={int(masked)}",
+                              2, 2, t, hd, dtype, rel, masked))
+    cases.append(("slice B=4 NH=16 T=499 hd=64 bfloat16 rel mask",
+                  4, 16, 499, 64, "bfloat16", True, True))
+    cases.append(("slice B=2 NH=16 T=499 hd=64 float32 rel mask",
+                  2, 16, 499, 64, "float32", True, True))
+    return cases
+
+
+def flash_inputs(rng, b, nh, t, hd, dtype, rel, masked, device):
+    """q, k, v, mask, q_pos, rel_r for one K5 case, from a numpy generator:
+    normal q, k, v (and q_pos), key masks of random valid lengths (row 0
+    unmasked), rel_r from a random linear_pos kernel by `rel_table_rev`."""
+    import torch
+
+    from wav2vec2_tpu_torch.ops import flash_attention as fa
+
+    dt = getattr(torch, dtype)
+
+    def normal(shape, scale=1.0):
+        x = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(x).to(device=device, dtype=dt)
+
+    q, k, v = (normal((b, nh, t, hd)) for _ in range(3))
+    mask = None
+    if masked:
+        lens = rng.integers(t // 2, t + 1, size=b)
+        lens[0] = t
+        mask = torch.from_numpy(np.where(np.arange(t)[None] < lens[:, None], 0.0, -np.inf)
+                                .astype(np.float32)).to(device)
+    q_pos = rel_r = None
+    if rel:
+        w_pos = normal((nh * hd, nh * hd), 0.1).float()
+        rel_r = fa.rel_table_rev(w_pos, nh, fa.pad_len(t), dt)
+        q_pos = normal((b, nh, t, hd))
+    return q, k, v, mask, q_pos, rel_r
+
+
+def flash_plain(q, k, v, mask, q_pos, rel_r, scale):
+    """K5's plain version on the inputs the wrapper gives the kernel."""
+    from wav2vec2_tpu_torch.models.layers import full_f32_precision
+    from wav2vec2_tpu_torch.ops import flash_attention as fa
+    from wav2vec2_tpu_torch.ops import flash_attention_ref
+
+    t = q.shape[2]
+    pq, pk, pv, pmask, pq_pos = fa.pad_inputs(q, k, v, mask, q_pos, rel_r)
+    with full_f32_precision():
+        out = flash_attention_ref.attention(pq, pk, pv, pmask, q_pos=pq_pos, rel_r=rel_r,
+                                            scale=scale)
+    return out[:, :, :t]
+
+
+def check_flash(device, cases):
+    """K5 vs its plain version on every case, within FLASH_REL_BOUND
+    relative to the largest output; one launch per case. Returns the
+    largest absolute difference."""
+    import torch
+
+    from wav2vec2_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(12)
+    worst, lines = 0.0, []
+    for name, b, nh, t, hd, dtype, rel, masked in cases:
+        q, k, v, mask, q_pos, rel_r = flash_inputs(rng, b, nh, t, hd, dtype, rel, masked,
+                                                   device)
+        got = fa.flash_attention(q, k, v, mask, q_pos=q_pos, rel_r=rel_r, scale=hd ** -0.5)
+        plain = flash_plain(q, k, v, mask, q_pos, rel_r, hd ** -0.5).float()
+        err = float((got.float() - plain).abs().max())
+        rel_err = err / float(plain.abs().max())
+        if not (torch.isfinite(got).all() and rel_err <= FLASH_REL_BOUND[dtype]):
+            raise AssertionError(f"K5 [{name}]: relative error {rel_err} against the plain "
+                                 f"version (bound {FLASH_REL_BOUND[dtype]})")
+        worst = max(worst, err)
+        lines.append(f"{name}: {rel_err:.2e}")
+    print(f"kernel check k5: {len(cases)} cases within {FLASH_REL_BOUND} of the plain version "
+          f"(relative max error): " + "; ".join(lines))
+    return worst
+
+
+def flash_bound(b, nh, t_pad, hd, elem_bytes, peak_ops):
+    """(bound_ms, bound_by) of one K5 launch: bytes moved once (q, q_pos,
+    k, v read, out written, the 2·T_pad − 1 table rows read, the f32 mask)
+    over 3.35 TB/s, against 6·T_pad²·hd operations per (batch, head) —
+    q·kᵀ, the position term, P·V — over `peak_ops`."""
+    n = b * nh * t_pad * hd
+    nbytes = elem_bytes * (5 * n + nh * (2 * t_pad - 1) * hd) + 4 * b * t_pad
+    ops = 6 * t_pad * t_pad * hd * b * nh
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_flash(device, card, self_attn, b, nh, t, hd):
+    """K5 at the slice's shape (for the conformer large at 32 × 10 s: B=32,
+    NH=16, T=499 → T_pad=512, hd=64; bf16, rel, masked): the kernel alone
+    on padded inputs, its plain
+    version, one library call (scaled_dot_product_attention with the
+    position term and mask as a precomputed bf16 bias), and the port's
+    factorized attention core at the same shape (layer 0's biases and
+    linear_pos). Checks the kernel against the plain version there too."""
+    import torch
+    import torch.nn.functional as F
+
+    from wav2vec2_tpu_torch.models.encoder import _attention_core
+    from wav2vec2_tpu_torch.ops import flash_attention as fa
+    from wav2vec2_tpu_torch.ops import flash_attention_ref
+
+    scale = hd ** -0.5
+    rng = np.random.default_rng(13)
+    q, k, v, mask, q_pos, rel_r = flash_inputs(rng, b, nh, t, hd, "bfloat16", True, True,
+                                               device)
+    pq, pk, pv, pmask, pq_pos = fa.pad_inputs(q, k, v, mask, q_pos, rel_r)
+    t_pad = pq.shape[2]
+    kernel = lambda: fa.flash_attention(pq, pk, pv, pmask, q_pos=pq_pos, rel_r=rel_r,  # noqa: E731
+                                        scale=scale)
+    plain = lambda: flash_attention_ref.attention(pq, pk, pv, pmask, q_pos=pq_pos,  # noqa: E731
+                                                  rel_r=rel_r, scale=scale)
+    got, want = kernel().float(), plain().float()
+    err = float((got - want).abs().max())
+    rel_err = err / float(want.abs().max())
+    if rel_err > FLASH_REL_BOUND["bfloat16"]:
+        raise AssertionError(f"K5 at the slice's shape: relative error {rel_err}")
+    k_ms, p_ms = interleaved_ms(kernel, plain, 20, 3)
+
+    with torch.inference_mode():
+        bias = (flash_attention_ref.rel_scores(pq_pos, rel_r) * scale
+                + pmask[:, None, None, :]).to(torch.bfloat16)
+        library = lambda: F.scaled_dot_product_attention(pq, pk, pv, attn_mask=bias,  # noqa: E731
+                                                         scale=scale)
+        lib_err = float((library().float() - want).abs().max()) / float(want.abs().max())
+        library()
+        lib_ms = cuda_time_ms(library, 20)
+        del bias
+        mask_bias = mask[:, None, None, :]
+        core = lambda: _attention_core(self_attn, q, k, v, mask_bias, "relative",  # noqa: E731
+                                       nh * hd)
+        core()
+        core_ms = cuda_time_ms(core, 10)
+    bound_ms, bound_by = flash_bound(b, nh, t_pad, hd, 2, PEAK_BF16_OPS_PER_S)
+    print(f"time: K5 kernel {k_ms:.4f} ms vs plain PyTorch {p_ms:.3f} ms at B={b} NH={nh} "
+          f"T={t} (T_pad={t_pad}) hd={hd} bf16 rel mask (CUDA events, medians; plain, kernel, "
+          f"kernel, plain); bound {bound_ms:.4f} ms by {bound_by}; relative error "
+          f"{rel_err:.2e} {card}")
+    print(f"time: library call scaled_dot_product_attention(q, k, v, attn_mask=bd*scale + "
+          f"mask, scale) {lib_ms:.4f} ms at the same shape (bd precomputed, its construction "
+          f"excluded; relative difference to the plain version {lib_err:.2e}); the port's "
+          f"factorized attention core {core_ms:.4f} ms (CUDA events, medians) {card}")
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by, err=err)
+
+
+def kernel_time_split(fwd):
+    """Device time of one call of `fwd` by kernel, from torch.profiler:
+    {group: ms} over K5, GEMMs, convolutions and the rest, the total, and
+    the five longest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fwd()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.device_time_total / 1e3) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    groups = {"K5": 0.0, "GEMM": 0.0, "convolution": 0.0, "other": 0.0}
+    for name, ms in kernels:
+        low = name.lower()
+        group = ("K5" if "flash_attention_kernel" in low
+                 else "GEMM" if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass"))
+                 else "convolution" if "conv" in low or "cudnn" in low
+                 else "other")
+        groups[group] += ms
+    top = sorted(kernels, key=lambda kv: -kv[1])[:5]
+    return groups, sum(groups.values()), top
+
+
+def conformer_params(cfg, seed):
+    """Numpy random-init conformer tree with non-zero pos_bias_u/v and a
+    non-identity BatchNorm affine (both zero or identity in init_params,
+    where a wrong bias or BatchNorm path would pass unseen)."""
+    from wav2vec2_tpu_torch.models.params import init_params
+
+    tree = init_params(cfg, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    layers = tree["encoder"]["layers"]
+    for name in ("pos_bias_u", "pos_bias_v"):
+        shape = layers["self_attn"][name].shape
+        layers["self_attn"][name] = rng.standard_normal(shape, dtype=np.float32)
+    bn = layers["conv_module"]["batch_norm"]
+    bn["scale"] = 1.0 + np.float32(0.3) * rng.standard_normal(bn["scale"].shape,
+                                                               dtype=np.float32)
+    bn["shift"] = np.float32(0.3) * rng.standard_normal(bn["shift"].shape, dtype=np.float32)
+    return tree
+
+
+def first_layers(tree, n):
+    """The tree with its stacked encoder layers cut to the first `n`."""
+    def cut(node):
+        return {k: cut(v) for k, v in node.items()} if isinstance(node, dict) else node[:n]
+
+    return {**tree, "encoder": {**tree["encoder"], "layers": cut(tree["encoder"]["layers"])}}
+
+
+def run_conformer(device, vocab, card):
+    """wav2vec2-conformer-rel-pos-large at full width and depth through
+    the batch entry (bf16, gates of bench.py; counted: K5 once per layer in
+    each of the bf16 and f32 forwards, K1), then the f32 forward through K5
+    against the f32 factorized forward (<= 1e-3 relative on the logits),
+    the forward with and without K5, the frontend alone, the forward's
+    device time by kernel group, the batch path's realtime factor and
+    peak memory, and K5 at the slice's shape. Returns (path counts, K5
+    times, the bf16 device params)."""
+    import dataclasses
+
+    import torch
+
+    from wav2vec2_tpu_torch.config import Wav2Vec2ModelConfig
+    from wav2vec2_tpu_torch.models.ctc_model import wav2vec2_forward
+    from wav2vec2_tpu_torch.models.feature_extractor import (
+        feature_extractor_forward,
+        feature_projection_forward,
+    )
+    from wav2vec2_tpu_torch.models.params import params_from_jax
+    from wav2vec2_tpu_torch.parallel.batching import _normalize_batch
+
+    cfg = Wav2Vec2ModelConfig.from_dict(CONFORMER_CONFIG)
+    params_np = conformer_params(cfg, seed=10)
+    params = params_from_jax(params_np, device=device)
+    reset_launches()
+    aligner, inputs = run_batch_entry(device, cfg, params, vocab, batch=32, seconds=10.0,
+                                      n_check=16, label="conformer rel-pos large")
+    counts = read_launches()
+    if counts["k5"] != 2 * cfg.num_hidden_layers or counts["k1"] < 1:
+        raise AssertionError(f"the conformer batch entry launched {counts}: want K5 "
+                             f"{cfg.num_hidden_layers} per forward in 2 forwards, K1 >= 1")
+
+    with torch.inference_mode():
+        audio = _normalize_batch(inputs[0], inputs[1])
+
+        def forward(p, flash, dtype):
+            c = dataclasses.replace(cfg, use_flash_attention=flash)
+            return wav2vec2_forward(p, audio, c, audio_lens=inputs[1], compute_dtype=dtype)
+
+        on, off = forward(params, True, torch.float32), forward(params, False, torch.float32)
+        flag_err = float((on - off).abs().max()) / float(off.abs().max())
+        if not (torch.isfinite(on).all() and flag_err <= 1e-3):
+            raise AssertionError(f"conformer f32 forward through K5 vs factorized: relative "
+                                 f"error {flag_err} (bound 1e-3)")
+        del on, off, params
+        print(f"conformer f32 forward through K5 vs the factorized forward: relative max "
+              f"error {flag_err:.2e} on the logits (bound 1e-3), 32 x 10 s")
+        fwd = {}
+        for flash in (False, True, True, False):
+            forward(aligner.params, flash, torch.bfloat16)
+            fwd.setdefault(flash, []).append(
+                cuda_time_ms(lambda: forward(aligner.params, flash, torch.bfloat16), 3))
+        p, lens = aligner.params, inputs[1]
+        frontend = lambda: feature_projection_forward(  # noqa: E731
+            p["feature_projection"], feature_extractor_forward(
+                p["feature_extractor"], audio.to(torch.bfloat16), cfg,
+                audio_lens=lens).transpose(1, 2), cfg)
+        frontend()
+        front_ms = cuda_time_ms(frontend, 3)
+        groups, busy_ms, top = kernel_time_split(lambda: forward(p, True, torch.bfloat16))
+    fwd_ms = statistics.median(fwd[True])
+    print(f"time: conformer rel-pos large forward {fwd_ms:.3f} ms through K5, "
+          f"{statistics.median(fwd[False]):.3f} ms factorized, 32 x 10 s bf16 (CUDA events, "
+          f"medians; factorized, K5, K5, factorized); of it the frontend (7 convs with "
+          f"LayerNorm and GELU, projection) {front_ms:.3f} ms {card}")
+    split = ("not measured (torch.profiler saw no CUDA kernel)" if not busy_ms else
+             f"device busy {busy_ms:.3f} ms; "
+             + ", ".join(f"{g} {ms:.3f} ms" for g, ms in groups.items())
+             + "; longest: " + "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in top))
+    print(f"time: conformer forward through K5 by kernel (torch.profiler, one forward): "
+          f"{split} {card}")
+    rtf, total_s, peak_gb, wait_ms, group_ms = time_batch_path(aligner, vocab, 32, repeats=3)
+    print(f"time: conformer batch path {rtf:.1f}x realtime (3 batches of 32 x 10 s, bf16, K5, "
+          f"submit/drain double-buffered, {total_s / 3 * 1e3:.1f} ms per batch; host waited "
+          f"{wait_ms:.1f} ms, grouped {group_ms:.1f} ms; peak device memory {peak_gb:.2f} GB) "
+          f"{card}")
+    self_attn = {k: (v[0] if isinstance(v, torch.Tensor) else {n: w[0] for n, w in v.items()})
+                 for k, v in aligner.params["encoder"]["layers"]["self_attn"].items()}
+    nh = cfg.num_attention_heads
+    k5 = time_flash(device, card, self_attn, 32, nh, cfg.conv_output_length(inputs[0].shape[1]),
+                    cfg.hidden_size // nh)
+    return counts, k5, params_np
+
+
 def main() -> int:
     import torch
 
@@ -708,7 +1032,8 @@ def main() -> int:
         return 2
     from wav2vec2_tpu_torch.config import Wav2Vec2ModelConfig
     from wav2vec2_tpu_torch.models.params import init_params, params_from_jax
-    from wav2vec2_tpu_torch.ops import viterbi_cuda, viterbi_ref
+    from wav2vec2_tpu_torch.ops import cuda_build, viterbi_cuda, viterbi_ref
+    from wav2vec2_tpu_torch.ops import flash_attention as fa
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
@@ -722,17 +1047,23 @@ def main() -> int:
     print(f"device: {name}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
 
-    info = viterbi_cuda.build(force=True)
+    info = cuda_build.build(force=True)
     ptxas = " | ".join(l.strip() for l in info["compiler_output"].splitlines()
-                       if "registers" in l or "smem" in l)
-    print(f"build: {', '.join(s.name for s in viterbi_cuda.SOURCES)} -> {info['library']} in "
-          f"{info['seconds']:.3f} s (nvcc {' '.join(viterbi_cuda.NVCC_FLAGS)}); ptxas: {ptxas}")
+                       if "registers" in l or "smem" in l or "spill" in l)
+    print(f"build: {', '.join(s.name for s in cuda_build.SOURCES)} -> {info['library']} in "
+          f"{info['seconds']:.3f} s (nvcc {' '.join(cuda_build.NVCC_FLAGS)}); ptxas: {ptxas}")
 
     for shape in ((499, 256, 32), (3047, 128, 32), (37, 61, 397), (HOUR_FRAMES, 12_672, 392)):
         for tier in viterbi_cuda.TIERS:
             if viterbi_cuda.library_smem_bytes(tier, *shape) != viterbi_cuda.smem_bytes(tier, *shape):
                 raise AssertionError(f"{tier} at {shape}: the wrapper's shared-memory size "
                                      "differs from the kernel's")
+    for hd in (16, 32, 64, 80, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            for rel in (False, True):
+                if fa.library_smem_bytes(hd, dtype, rel) != fa.smem_bytes(hd, dtype, rel):
+                    raise AssertionError(f"k5 at hd={hd} {dtype} rel={rel}: the wrapper's "
+                                         "shared-memory size differs from the kernel's")
 
     # --- every kernel against its plain version ---------------------------
     rng = np.random.default_rng(0)
@@ -740,6 +1071,7 @@ def main() -> int:
     max_err = {"k1": check_kernel(device, cases, "k1")}
     for tier, tier_cases in blocked_cases(np.random.default_rng(8)).items():
         max_err[tier] = check_kernel(device, tier_cases, tier)
+    max_err["k5"] = check_flash(device, flash_cases())
     hour_rows = hour_scale(device, card)
     tier_crossover(device, card, hour_rows)
 
@@ -749,7 +1081,7 @@ def main() -> int:
     params = params_from_jax(params_np, device=device)
 
     # --- the paths, each counted from 0 -----------------------------------
-    launches = {tier: 0 for tier in viterbi_cuda.TIERS}
+    launches = {name: 0 for name in (*viterbi_cuda.TIERS, "k5")}
 
     def add(counts, phase, want):
         for tier, n in counts.items():
@@ -790,7 +1122,6 @@ def main() -> int:
     add(counts, "the phoneme-vocab long-form entry", "k3")
     max_err["k3"] = max(max_err["k3"], k3_run["err"])
     del params_ph
-    print(f"launch counts on the paths: {launches}")
 
     # --- times, each beside the card's name and power limit --------------
     kernels = {}
@@ -839,6 +1170,29 @@ def main() -> int:
               f"submit/drain double-buffered, {total_s:.3f} s wall = {total_s / 5 * 1e3:.1f} ms "
               f"per batch; per batch the host waited {wait_ms:.1f} ms for the copies and "
               f"grouped for {group_ms:.1f} ms; peak device memory {peak_gb:.2f} GB) {card}")
+    # --- the conformer rel-pos family: K5 on its path --------------------
+    del aligner, params, inputs
+    counts, k5_run, conformer_np = run_conformer(device, vocab, card)
+    add(counts, "the conformer batch entry", "k5")
+    max_err["k5"] = max(max_err["k5"], k5_run["err"])
+    # the single-utterance entry builds its forward with the kernel switch
+    # off (factorized attention), as in the JAX package; 4 blocks at full
+    # width keep the model directory small
+    cfg4_dict = {**CONFORMER_CONFIG, "num_hidden_layers": 4}
+    cfg4 = Wav2Vec2ModelConfig.from_dict(cfg4_dict)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_model_dir(Path(tmp), cfg4_dict, first_layers(conformer_np, 4), cfg4, vocab)
+        del conformer_np
+        reset_launches()
+        run_single_entry(device, Path(tmp), durations=(8.0,), n_words=14)
+        counts = read_launches()
+    if counts["k5"]:
+        raise AssertionError(f"the conformer single-utterance entry launched K5: {counts}")
+    add(counts, "the conformer single-utterance entry", "k1")
+    print(f"conformer single entry: a 4-block model directory written through "
+          f"params_to_hf_flat_dict (BatchNorm folded back by the loader) aligned every word; "
+          f"launches {counts}")
+    print(f"launch counts on the paths: {launches}")
     print(f"total smoke time {time.perf_counter() - t_start:.1f} s {card}")
 
     replaces = {"k1": 59, "k2": 366, "k3": 367, "k4": 368}
@@ -861,6 +1215,19 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes a banded Viterbi path
         })
+    line.append({
+        "name": "flash_attention_k5",
+        "route": "cuda",
+        "source": "wav2vec2_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "wav2vec2_tpu/ops/flash_attention.py:124",
+        "launches": launches["k5"],
+        "max_abs_err": max_err["k5"],
+        "ms": k5_run["ms"],
+        "plain_ms": k5_run["plain_ms"],
+        "bound_ms": k5_run["bound_ms"],
+        "bound_by": k5_run["bound_by"],
+        "library_ms": k5_run["library_ms"],
+    })
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -13,13 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import blocked_cases, check_kernel, kernel_cases
-from wav2vec2_tpu_torch.ops import viterbi_cuda
+from chip_smoke import blocked_cases, check_flash, check_kernel, flash_cases, kernel_cases
+from wav2vec2_tpu_torch.ops import flash_attention, viterbi_cuda
 
 
 def _card():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the Viterbi CUDA kernels have no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda", 0)
 
 
@@ -64,3 +64,28 @@ def test_forced_tier_that_does_not_fit_raises_before_launching(tier, t_pad, s_pa
     with pytest.raises(ValueError, match="shared memory"):
         viterbi_cuda.viterbi_batch(lp, tok, lens, lens, tier=tier)
     assert viterbi_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_k5_kernel_matches_plain_on_the_card():
+    """K5 against its plain version within 2e-5 (f32) and 3e-2 (bf16)
+    relative: rel on and off, masked and unmasked, odd T (37 to 1 499), head
+    dims 32, 64, 80, 128, and the conformer's shape with B cut; one launch
+    per case."""
+    device = _card()
+    cases = flash_cases()
+    before = flash_attention.launches["k5"]
+    check_flash(device, cases)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["k5"] == before + len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,dtype", [(256, torch.float32), (64, torch.float16)])
+def test_k5_size_it_does_not_take_raises_before_launching(hd, dtype):
+    device = _card()
+    q = torch.zeros((1, 1, 256, hd), dtype=dtype, device=device)
+    before = dict(flash_attention.launches)
+    with pytest.raises(ValueError, match="K5"):
+        flash_attention.flash_attention(q, q, q)
+    assert flash_attention.launches == before

@@ -1,0 +1,188 @@
+"""PyTorch port vs the JAX package: the fused rel-pos attention K5.
+
+On the CPU the port's `flash_attention` runs the kernel's plain version
+(`ops.flash_attention_ref`); the JAX `flash_attention` runs its Pallas
+kernel in interpret mode, as the JAX package's own tests run it. Same numpy
+inputs on both sides. Bounds, relative to the largest output: 2e-5 at f32
+(the kernel's own bound in `tests/test_flash_attention.py`; sums taken in
+another order), 3e-2 at bf16 (bf16 operand and probability rounding). The
+table `rel_table_rev` is held within 1e-6 relative at f32, its sinusoid
+`_pe_table` bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from wav2vec2_tpu.ops import flash_attention as jax_fa
+from wav2vec2_tpu_torch.ops import flash_attention as fa
+from wav2vec2_tpu_torch.ops import flash_attention_ref
+
+F32_REL = 2e-5
+BF16_REL = 3e-2
+
+
+def _inputs(b, nh, t, hd, rel, masked, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(b, nh, t, hd)).astype(np.float32) for _ in range(3))
+    mask = None
+    if masked:
+        lens = rng.integers(t // 2, t + 1, size=b)
+        lens[0] = t
+        mask = np.where(np.arange(t)[None] < lens[:, None], 0.0, -np.inf).astype(np.float32)
+    q_pos = w_pos = None
+    if rel:
+        h = nh * hd
+        w_pos = (rng.normal(size=(h, h)) * 0.1).astype(np.float32)
+        q_pos = rng.normal(size=(b, nh, t, hd)).astype(np.float32)
+    return q, k, v, mask, q_pos, w_pos
+
+
+def _jax_out(q, k, v, mask, q_pos, w_pos, dtype):
+    nh, t = q.shape[1], q.shape[2]
+    kw = {}
+    if w_pos is not None:
+        kw = dict(q_pos=jnp.asarray(q_pos, dtype),
+                  rel_r=jax_fa.rel_table_rev(jnp.asarray(w_pos), nh, jax_fa.pad_len(t), dtype))
+    out = jax_fa.flash_attention(
+        jnp.asarray(q, dtype), jnp.asarray(k, dtype), jnp.asarray(v, dtype),
+        None if mask is None else jnp.asarray(mask), scale=q.shape[3] ** -0.5, **kw)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _port_out(q, k, v, mask, q_pos, w_pos, dtype):
+    nh, t = q.shape[1], q.shape[2]
+
+    def tt(x):
+        return torch.from_numpy(x).to(dtype)
+
+    kw = {}
+    if w_pos is not None:
+        kw = dict(q_pos=tt(q_pos),
+                  rel_r=fa.rel_table_rev(torch.from_numpy(w_pos), nh, fa.pad_len(t), dtype))
+    out = fa.flash_attention(tt(q), tt(k), tt(v),
+                             None if mask is None else torch.from_numpy(mask),
+                             scale=q.shape[3] ** -0.5, **kw)
+    assert out.dtype == dtype and out.shape == q.shape
+    return out.float().numpy()
+
+
+def _rel_err(got, want):
+    return float(np.abs(got - want).max() / (np.abs(want).max() or 1.0))
+
+
+@pytest.mark.parametrize("t", [37, 200, 257, 384])
+@pytest.mark.parametrize("rel", [True, False])
+@pytest.mark.parametrize("masked", [True, False])
+def test_plain_version_matches_jax_kernel_f32(t, rel, masked):
+    args = _inputs(2, 2, t, 32, rel, masked, seed=t)
+    got = _port_out(*args, torch.float32)
+    want = _jax_out(*args, jnp.float32)
+    assert np.isfinite(got).all()
+    assert _rel_err(got, want) < F32_REL
+
+
+@pytest.mark.parametrize("t,rel,masked", [(257, True, True), (200, False, False)])
+def test_plain_version_matches_jax_kernel_bf16(t, rel, masked):
+    args = _inputs(2, 2, t, 64, rel, masked, seed=1)
+    got = _port_out(*args, torch.bfloat16)
+    want = _jax_out(*args, jnp.bfloat16)
+    assert _rel_err(got, want) < BF16_REL
+
+
+def test_plain_version_is_the_per_diagonal_definition():
+    """bd[i, k] = q_pos[i]·(pe_{i−k}·W_pos), with the table built in f64
+    (the JAX tests' oracle), at T = 37 (padded to 256)."""
+    b, nh, t, hd = 1, 2, 37, 16
+    q, k, v, mask, q_pos, w_pos = _inputs(b, nh, t, hd, True, True, seed=3)
+    h = nh * hd
+    d = np.arange(t)[:, None] - np.arange(t)[None, :]
+    inv = np.exp(np.arange(0, h, 2) * (-np.log(10000.0) / h))
+    ang = d[..., None] * inv
+    pe = np.stack([np.sin(ang), np.cos(ang)], -1).reshape(t, t, h)
+    r = (pe @ w_pos.astype(np.float64)).reshape(t, t, nh, hd)
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) + np.einsum("bhid,ikhd->bhik", q_pos, r)
+    s = s * hd ** -0.5 + mask[:, None, None, :]
+    p = np.exp(s - s.max(-1, keepdims=True))
+    want = np.einsum("bhqk,bhkd->bhqd", p / p.sum(-1, keepdims=True), v)
+    got = _port_out(q, k, v, mask, q_pos, w_pos, torch.float32)
+    assert _rel_err(got, want) < F32_REL
+
+
+@pytest.mark.parametrize("t_pad,h", [(256, 32), (512, 64), (1536, 1024)])
+def test_pe_table_is_the_jax_table_bit_for_bit(t_pad, h):
+    np.testing.assert_array_equal(fa._pe_table(t_pad, h), jax_fa._pe_table(t_pad, h))
+
+
+@pytest.mark.parametrize("t_pad,nh,h", [(256, 2, 32), (512, 4, 64)])
+def test_rel_table_rev_matches_jax(t_pad, nh, h):
+    w = (np.random.default_rng(h).normal(size=(h, h)) * 0.1).astype(np.float32)
+    got = fa.rel_table_rev(torch.from_numpy(w), nh, t_pad, torch.float32).numpy()
+    want = np.asarray(jax_fa.rel_table_rev(jnp.asarray(w), nh, t_pad, jnp.float32))
+    assert got.shape == want.shape == (nh, 2 * t_pad, h // nh)
+    assert _rel_err(got, want) < 1e-6
+
+
+def test_rel_scores_read_the_diagonal_rows():
+    """bd[i, k] reads row T_pad − i + k of the table: every row read lies
+    in [1, 2·T_pad)."""
+    t, hd = 256, 4
+    rel_r = torch.arange(2 * t, dtype=torch.float32)[None, :, None].expand(1, 2 * t, hd)
+    q_pos = torch.zeros((1, 1, t, hd))
+    q_pos[..., 0] = 1.0
+    bd = flash_attention_ref.rel_scores(q_pos, rel_r)[0, 0]
+    i, k = torch.meshgrid(torch.arange(t), torch.arange(t), indexing="ij")
+    torch.testing.assert_close(bd, (t - i + k).float(), rtol=0, atol=0)
+    assert int(bd.min()) == 1 and int(bd.max()) == 2 * t - 1
+
+
+def test_padding_masks_padded_keys_and_drops_padded_rows():
+    """T = 37 pads to 256: the result equals attention over the 37 keys
+    alone, computed at T_pad = T by the plain version."""
+    q, k, v, mask, _, _ = _inputs(2, 2, 37, 8, False, True, seed=4)
+    got = _port_out(q, k, v, mask, None, None, torch.float32)
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) * 8 ** -0.5 + mask[:, None, None, :]
+    p = np.exp(s - s.max(-1, keepdims=True))
+    want = np.einsum("bhqk,bhkd->bhqd", p / p.sum(-1, keepdims=True), v)
+    assert _rel_err(got, want) < F32_REL
+
+
+def test_use_flash_dispatch_rule(monkeypatch):
+    monkeypatch.delenv(fa.FORCE_ENV, raising=False)
+    assert fa.use_flash(64, rel=True)
+    assert fa.use_flash(64, rel=True, dtype=torch.float32)
+    assert fa.use_flash(128, rel=True, dtype=torch.float32)
+    assert not fa.use_flash(64)  # plain attention: only when forced
+    assert not fa.use_flash(256, rel=True)  # beyond the head_dim cap
+    assert not fa.use_flash(64, rel=True, dtype=torch.float16)  # no kernel type
+    monkeypatch.setenv(fa.FORCE_ENV, "1")
+    assert fa.use_flash(64) and fa.use_flash(32, dtype=torch.float32)
+    assert not fa.use_flash(200, rel=True)
+
+
+@pytest.mark.parametrize("hd,dtype,rel", [
+    (16, torch.float32, False), (32, torch.bfloat16, True), (64, torch.bfloat16, True),
+    (100, torch.float32, True), (128, torch.float32, True),
+])
+def test_shared_memory_within_one_block(hd, dtype, rel):
+    need = fa.smem_bytes(hd, dtype, rel)
+    assert 0 < need <= fa.MAX_SMEM_BYTES
+    fa.check_fits(hd, dtype, rel)
+
+
+@pytest.mark.parametrize("hd,dtype", [(0, torch.float32), (129, torch.float32),
+                                      (64, torch.float16)])
+def test_check_fits_refuses_what_no_template_serves(hd, dtype):
+    with pytest.raises(ValueError, match="K5"):
+        fa.check_fits(hd, dtype, True)
+
+
+def test_wrapper_refuses_bad_arguments():
+    q = torch.zeros((1, 2, 40, 8))
+    with pytest.raises(ValueError, match="together"):
+        fa.flash_attention(q, q, q, q_pos=q)
+    with pytest.raises(ValueError, match="rel_r"):
+        fa.flash_attention(q, q, q, q_pos=q, rel_r=torch.zeros((2, 80, 8)))
+    with pytest.raises(ValueError, match="no attention kernel"):
+        fa.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))

@@ -11,8 +11,9 @@
 - The port's safetensors reader/writer round-trip against the
   `safetensors` package.
 - The port imports and runs its CPU slice (batch, single-utterance and
-  long-form entries) with jax, safetensors and transformers made
-  unimportable.
+  long-form entries, and a tiny conformer through the batch entry with the
+  attention kernel switch on and off) with jax, safetensors and
+  transformers made unimportable.
 """
 
 import json
@@ -295,6 +296,17 @@ lf = w.align_longform(rng.normal(size=20000).astype(np.float32), "the quick brow
                       params_from_jax(init_params(cfg, 0)), cfg, vocab, chunk_sec=0.5,
                       overlap_sec=0.125, device="cpu")
 assert [x.word for x in lf.words] == ["THE", "QUICK", "BROWN", "FOX"], lf
+conf = w.Wav2Vec2ModelConfig.from_dict({{**{CONFIG!r}, "model_type": "wav2vec2-conformer",
+    "hidden_size": 64, "feat_extract_norm": "layer", "conv_bias": True,
+    "position_embeddings_type": "relative", "hidden_act": "swish",
+    "conv_depthwise_kernel_size": 7}})
+conf_params = params_from_jax(init_params(conf, 1))
+for flash in (True, False):
+    out = w.BatchAligner(conf, conf_params, vocab, "float32", device="cpu",
+                         use_flash_attention=flash).align_utterances(
+        [rng.normal(size=3000).astype(np.float32)], ["jumps over the dog"],
+        audio_multiple=1000)
+    assert [x.word for x in out[0].words] == ["JUMPS", "OVER", "THE", "DOG"], out
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("wav2vec2_tpu", "jax")
              and sys.modules[m] is not None)
 assert not bad, bad

@@ -6,11 +6,15 @@ The module layout and function names mirror the JAX package, which stays
 the reference. The port imports torch and numpy only: never jax, the JAX
 package, safetensors or transformers.
 
-Ported so far: the wav2vec2-base CTC graph through the single-utterance
-entry (`ForcedAlignerBuilder`), the padded-batch entry (`BatchAligner`)
-and the long-form entry (`align_longform`), with the four banded CTC
-Viterbi kernels written in CUDA: K1 (`csrc/viterbi.cu`) and the blocked
-tiers K2, K3, K4 (`csrc/viterbi_blocked.cu`).
+Ported so far: the wav2vec2-base CTC graph and the wav2vec2-conformer one
+(layer-norm frontend; relative, rotary or no position embeddings) through
+the single-utterance entry (`ForcedAlignerBuilder`), the padded-batch entry
+(`BatchAligner`) and the long-form entry (`align_longform`), with every
+kernel of the JAX package written in CUDA: the banded CTC Viterbi K1
+(`csrc/viterbi.cu`), its blocked tiers K2, K3, K4
+(`csrc/viterbi_blocked.cu`), and the fused Transformer-XL attention K5
+(`csrc/flash_attention.cu`), which `BatchAligner` runs for the conformer
+rel-pos family.
 """
 
 from .align.longform import align_longform

@@ -1,10 +1,12 @@
 """Configuration types, carried over from `wav2vec2_tpu.config`.
 
-Only what the port's first slice uses: the wav2vec2 CTC model config
-(group-norm conv frontend, post-norm encoder, plain attention), the
-aligner's tunables with the same defaults, and the vocab loader. Model
-types whose graphs the port does not run yet are refused when the config is
-parsed instead of silently running the wrong graph.
+Only what the port runs: the wav2vec2 CTC model config (group-norm conv
+frontend, post-norm encoder, plain attention) and the wav2vec2-conformer
+one (layer-norm or group-norm frontend, conformer blocks with relative,
+rotary or no position embeddings), the aligner's tunables with the same
+defaults, and the vocab loader. Model types whose graphs the port does not
+run yet are refused when the config is parsed instead of silently running
+the wrong graph.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ from .errors import InvalidInputError, IoError, JsonError
 
 DEFAULT_SAMPLE_RATE_HZ = 16_000
 
-# config.json model types whose CTC graph is the wav2vec2 one this slice runs
-_SUPPORTED_MODEL_TYPES = (None, "wav2vec2")
+# config.json model type → the encoder the port runs for it
+_ENCODER_STYLES = {None: "wav2vec2", "wav2vec2": "wav2vec2",
+                   "wav2vec2-conformer": "conformer"}
 
 
 @dataclass
@@ -54,6 +57,20 @@ class Wav2Vec2ModelConfig:
     dtype: Optional[str] = None
     feat_extract_norm: str = "layer"
     conv_bias: bool = True
+    # "wav2vec2" | "conformer" (set from config.json's model_type)
+    encoder_style: str = "wav2vec2"
+    # Wav2Vec2-Conformer (Wav2Vec2ConformerConfig): conformer blocks with
+    # Transformer-XL relative, rotary or no position embeddings; hidden_act
+    # is the FFN and conv-module activation (released checkpoints: "swish")
+    position_embeddings_type: str = "relative"  # "relative"|"rotary"|"none"
+    rotary_embedding_base: int = 10000
+    max_source_positions: int = 5000
+    conv_depthwise_kernel_size: int = 31
+    hidden_act: str = "gelu"
+    # serving-path switch (not a checkpoint field): route the conformer's
+    # attention through the fused kernel (ops/flash_attention.py). Set by
+    # BatchAligner on a CUDA device.
+    use_flash_attention: bool = False
 
     @classmethod
     def from_dict(cls, d: dict) -> "Wav2Vec2ModelConfig":
@@ -66,26 +83,45 @@ class Wav2Vec2ModelConfig:
         missing = [k for k in required if k not in d]
         if missing:
             raise JsonError("parse config.json", f"missing fields: {missing}")
-        if d.get("model_type") not in _SUPPORTED_MODEL_TYPES:
+        if d.get("model_type") not in _ENCODER_STYLES:
             raise InvalidInputError(
                 f"model_type {d.get('model_type')!r} is not supported by the "
-                "PyTorch port yet (wav2vec2 only)"
+                "PyTorch port yet (wav2vec2 and wav2vec2-conformer only)"
             )
         kwargs = {k: d[k] for k in required}
         for opt in ["do_stable_layer_norm", "layer_norm_eps", "dtype",
-                    "feat_extract_norm", "conv_bias"]:
+                    "feat_extract_norm", "conv_bias", "rotary_embedding_base",
+                    "max_source_positions", "conv_depthwise_kernel_size",
+                    "hidden_act"]:
             if opt in d and d[opt] is not None:
                 kwargs[opt] = d[opt]
+        kwargs["encoder_style"] = _ENCODER_STYLES[d.get("model_type")]
+        if kwargs["encoder_style"] == "conformer":
+            # Wav2Vec2ConformerConfig allows position_embeddings_type=None
+            # (position-free attention); normalize to "none"
+            kwargs["position_embeddings_type"] = (
+                d.get("position_embeddings_type") or "none"
+            )
         cfg = cls(**kwargs)
-        # the slice runs the wav2vec2-base graph: group-norm frontend,
-        # post-norm encoder, no adapter
+        # the port runs the post-norm, group-norm wav2vec2 graph and the
+        # conformer graph (layer-norm or group-norm frontend); no adapter
+        conformer = cfg.encoder_style == "conformer"
+        frontends = ("group", "layer") if conformer else ("group",)
         if d.get("add_adapter") or cfg.do_stable_layer_norm or (
-            cfg.feat_extract_norm != "group"
+            cfg.feat_extract_norm not in frontends
         ):
             raise InvalidInputError(
                 "the PyTorch port runs only the post-norm, group-norm "
-                "wav2vec2 graph so far (no stable-layer-norm, layer-norm "
-                "frontend or adapter)"
+                "wav2vec2 graph and the wav2vec2-conformer graph so far (no "
+                "stable-layer-norm, no layer-norm frontend outside the "
+                "conformer, no adapter)"
+            )
+        if conformer and cfg.position_embeddings_type not in (
+            "relative", "rotary", "none"
+        ):
+            raise InvalidInputError(
+                f"position_embeddings_type {cfg.position_embeddings_type!r} "
+                "is not supported (expected relative/rotary/none)"
             )
         return cfg
 

@@ -1,9 +1,9 @@
 """Wav2Vec2ForCTC: the full acoustic model graph.
 
 PyTorch counterpart of `wav2vec2_tpu.models.ctc_model` for the conv
-frontend and the wav2vec2 encoder: audio [B, N] → feature extractor
-[B, C, T] → feature projection [B, T, H] → encoder → lm_head → logits
-[B, T, V] in f32.
+frontend and the wav2vec2 and conformer encoders: audio [B, N] → feature
+extractor [B, C, T] → feature projection [B, T, H] → encoder (by
+`cfg.encoder_style`) → lm_head → logits [B, T, V] in f32.
 
 Precision. The JAX f32 forward runs at HIGHEST matmul precision. On the
 card PyTorch's f32 matmuls are full f32 by default, but cuDNN's f32
@@ -21,23 +21,9 @@ import contextlib
 import torch
 
 from ..config import Wav2Vec2ModelConfig
-from .encoder import encoder_forward
+from .encoder import conformer_encoder_forward, encoder_forward
 from .feature_extractor import feature_extractor_forward, feature_projection_forward
-from .layers import linear
-
-
-@contextlib.contextmanager
-def full_f32_precision():
-    """TF32 off for matmuls and cuDNN convolutions inside the block."""
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    cudnn = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul
-        torch.backends.cudnn.allow_tf32 = cudnn
+from .layers import full_f32_precision, linear
 
 
 def wav2vec2_forward(
@@ -70,7 +56,9 @@ def wav2vec2_forward(
                 torch.arange(hidden.shape[1], device=hidden.device)[None, :]
                 < conv_lens[:, None]
             )
-        hidden = encoder_forward(params["encoder"], hidden, cfg, frame_mask=frame_mask)
+        encoder = (conformer_encoder_forward if cfg.encoder_style == "conformer"
+                   else encoder_forward)
+        hidden = encoder(params["encoder"], hidden, cfg, frame_mask=frame_mask)
         logits = linear(hidden, params["lm_head"]["kernel"], params["lm_head"]["bias"])
         return logits.float()
 

@@ -1,13 +1,14 @@
 """wav2vec2 conv feature extractor + feature projection.
 
-PyTorch counterpart of `wav2vec2_tpu.models.feature_extractor` for the
-group-norm frontend (wav2vec2-base):
+PyTorch counterpart of `wav2vec2_tpu.models.feature_extractor`:
 
 - a stack of VALID Conv1d layers (in_c = 1 for layer 0), per-layer kernel
   and stride from the config, optional bias;
-- GroupNorm(groups = channels) on layer 0 only, with statistics masked to
-  the valid frames of each utterance, so a padded batch equals per-utterance
-  execution;
+- `feat_extract_norm == "group"` (wav2vec2-base): GroupNorm(groups =
+  channels) on layer 0 only, with statistics masked to the valid frames of
+  each utterance, so a padded batch equals per-utterance execution;
+- `feat_extract_norm == "layer"` (the conformer checkpoints): LayerNorm
+  over channels after every conv (per frame, so padding needs no mask);
 - erf-GELU after every conv;
 - projection: LayerNorm(conv_dim[-1]) → Linear(conv_dim[-1] → hidden).
 
@@ -21,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Wav2Vec2ModelConfig
-from .layers import gelu, group_norm_1d, layer_norm, linear
+from .layers import gelu, group_norm_1d, layer_norm, layer_norm_channels, linear
 
 
 def feature_extractor_forward(
@@ -32,9 +33,13 @@ def feature_extractor_forward(
 ) -> torch.Tensor:
     """audio [B, N] → features [B, C_last, T].
 
-    `audio_lens` [B] enables masked GroupNorm statistics."""
+    `audio_lens` [B] enables masked GroupNorm statistics (the layer-norm
+    frontend normalizes each frame alone and needs no mask)."""
     x = audio[:, None, :]
     lens = audio_lens
+    # one epsilon for the frontend and the encoder (the JAX package's
+    # separate feature epsilon belongs to SEW-D, which the port refuses)
+    eps = cfg.layer_norm_eps
     for i, (out_c, k, s) in enumerate(
         zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride)
     ):
@@ -44,7 +49,10 @@ def feature_extractor_forward(
             x, conv["weight"].to(x.dtype),
             None if bias is None else bias.to(x.dtype), stride=s,
         )
-        if i == 0:
+        if cfg.feat_extract_norm == "layer":
+            ln = params["conv_layers"][i]["layer_norm"]
+            x = layer_norm_channels(x, ln["weight"], ln["bias"], eps)
+        elif i == 0:
             time_mask = None
             if lens is not None:
                 lens = (lens - k) // s + 1
@@ -55,7 +63,7 @@ def feature_extractor_forward(
             gn = params["conv_layers"][0]["layer_norm"]
             x = group_norm_1d(
                 x, gn["weight"], gn["bias"], num_groups=out_c,
-                eps=cfg.layer_norm_eps, time_mask=time_mask,
+                eps=eps, time_mask=time_mask,
             )
         x = gelu(x)
     return x

@@ -7,9 +7,25 @@ back to the input dtype, as in the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+@contextlib.contextmanager
+def full_f32_precision():
+    """TF32 off for matmuls and cuDNN convolutions inside the block."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    cudnn = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -34,6 +50,25 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return xf.mul_(0.5).mul_(erf.add_(1.0)).to(x.dtype)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU / swish (x · sigmoid(x)), the activation of the conformer's FFN
+    and conv module, evaluated in f32 and cast back to the input dtype."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return F.silu(x.float(), inplace=True).to(x.dtype)
+
+
+def act_fn(name: str):
+    """The activation called `name` in config.json (transformers ACT2FN)."""
+    try:
+        return {"gelu": gelu, "swish": silu, "silu": silu,
+                "relu": torch.relu}[name]
+    except KeyError:
+        raise NotImplementedError(
+            f"hidden_act {name!r} is not supported (expected gelu/swish/relu)"
+        ) from None
+
+
 def layer_norm(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float
 ) -> torch.Tensor:
@@ -43,6 +78,22 @@ def layer_norm(
         x.float(), (x.shape[-1],), weight.float(), bias.float(), eps
     )
     return out.to(x.dtype)
+
+
+def layer_norm_channels(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float
+) -> torch.Tensor:
+    """LayerNorm over the channels of a [B, C, T] tensor: the values of
+    `layer_norm(x.transpose(1, 2), ...).transpose(1, 2)` (f32 statistics
+    and affine, output in the input dtype) without the transposes, in place
+    on one f32 temporary (the frontend's first activation is [B, 512,
+    ~N/5]; a literal port makes one f32 copy per operation)."""
+    c = x.shape[1]
+    xf = x.to(torch.float32, copy=True)
+    var, mean = torch.var_mean(xf, dim=1, keepdim=True, correction=0)
+    xf.sub_(mean).mul_(torch.rsqrt(var.add_(eps)))
+    xf.mul_(weight.float().reshape(1, c, 1)).add_(bias.float().reshape(1, c, 1))
+    return xf.to(x.dtype)
 
 
 def group_norm_1d(

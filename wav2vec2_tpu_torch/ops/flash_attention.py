@@ -1,0 +1,243 @@
+"""Fused attention with the Transformer-XL relative-position term: K5.
+
+Counterpart of `wav2vec2_tpu.ops.flash_attention`. `flash_attention` pads
+T to `pad_len(T)` (padded keys masked with −inf, padded query rows sliced
+off on return), then, for CUDA tensors, launches the hand-written kernel
+`csrc/flash_attention.cu` (the port of `_attn_kernel`) or raises; for CPU
+tensors it runs the plain version `ops.flash_attention_ref.attention`.
+There is no fallback from the kernel to the plain version. `launches`
+counts the kernel's launches.
+
+The relative table is `rel_table_rev`: R_rev[h, m] = (pe_{T_pad−m} ·
+W_pos)[h·hd : (h+1)·hd] for m ∈ [0, 2·T_pad), over the Transformer-XL
+sinusoid `_pe_table` built on the host in f64. Its [2·T_pad, H] × [H, H]
+product is a plain matmul in the compute dtype (outside the kernel, as in
+the JAX package), with TF32 off.
+
+Dispatch (`use_flash`): the JAX rule — the rel-pos style, or any style
+under WAV2VEC2_FLASH_FORCE=1 — with the head_dim ≤ 128 cap. The TPU's
+VMEM byte budget becomes the kernel's own shared-memory check (`fits`;
+`check_fits` raises before a launch), which does not depend on T: the
+kernel streams key tiles.
+
+The kernel is built with the port's other kernels by `ops.cuda_build`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+import os
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..models.layers import full_f32_precision
+from . import flash_attention_ref
+from .cuda_build import MAX_SMEM_BYTES, library
+
+BLOCK_Q = 256  # T is padded to a multiple of this, as in the JAX package
+HEAD_DIM_CAP = 128
+FORCE_ENV = "WAV2VEC2_FLASH_FORCE"
+# the kernel's tiles (csrc/flash_attention.cu): 64 query rows, 64 keys
+KERNEL_BQ = 64
+KERNEL_BK = 64
+_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+launches = {"k5": 0}
+
+
+def pad_len(t: int) -> int:
+    return -(-max(t, BLOCK_Q) // BLOCK_Q) * BLOCK_Q
+
+
+@functools.lru_cache(maxsize=8)
+def _pe_table(t_pad: int, h: int) -> np.ndarray:
+    """[2·T_pad, H] f32 sinusoid for distances d = T_pad − m, computed in
+    f64 (an f32 sin at |angle| ≈ T would cost ~3e-4 absolute)."""
+    d_vec = (t_pad - np.arange(2 * t_pad, dtype=np.float64))[:, None]
+    inv = np.exp(np.arange(0, h, 2, dtype=np.float64)
+                 * (-math.log(10000.0) / h))
+    ang = d_vec * inv[None, :]  # [2·T_pad, H/2]
+    return np.stack([np.sin(ang), np.cos(ang)], axis=-1).reshape(
+        2 * t_pad, h
+    ).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _pe_on(t_pad: int, h: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """`_pe_table` on `device` in `dtype`, copied there once."""
+    return torch.from_numpy(_pe_table(t_pad, h)).to(device=device, dtype=dtype)
+
+
+def rel_table_rev(w_pos_kernel: torch.Tensor, nh: int, t_pad: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Reversed projected relative-position table [NH, 2·T_pad, hd] in
+    `dtype`. w_pos_kernel: [H (pe component), H (nh·hd)], the [in, out]
+    kernel of linear_pos. Row m holds distance T_pad − m."""
+    h = w_pos_kernel.shape[0]
+    pe = _pe_on(t_pad, h, w_pos_kernel.device, dtype)
+    with full_f32_precision():
+        r = torch.matmul(pe, w_pos_kernel.to(dtype))
+    return r.reshape(2 * t_pad, nh, h // nh).transpose(0, 1).contiguous()
+
+
+def flash_forced() -> bool:
+    """WAV2VEC2_FLASH_FORCE=1 forces the kernel for every attention style
+    (A/B measurement); never set in production."""
+    return os.environ.get(FORCE_ENV, "") == "1"
+
+
+def _template_width(head_dim: int) -> int:
+    """The kernel template that serves `head_dim` (0 if none does)."""
+    for width in (16, 32, 64, HEAD_DIM_CAP):
+        if 1 <= head_dim <= width:
+            return width
+    return 0
+
+
+def smem_bytes(head_dim: int, dtype: torch.dtype, rel: bool) -> int:
+    """Shared memory one block needs: `flash_attention_smem_bytes` of the
+    CUDA source (chip_smoke.py holds the two equal); 0 if no template
+    serves `head_dim` or the dtype."""
+    width, elem = _template_width(head_dim), _ELEM_BYTES.get(dtype, 0)
+    if not width or not elem:
+        return 0
+    ld = width + (1 if elem == 4 else 2)
+    rows = KERNEL_BQ + 2 * KERNEL_BK + (2 * KERNEL_BQ + KERNEL_BK - 1 if rel else 0)
+    tiles = -(-rows * ld * elem // 16) * 16
+    return tiles + KERNEL_BQ * (KERNEL_BK + 4) * 4 + 3 * KERNEL_BQ * 4
+
+
+def library_smem_bytes(head_dim: int, dtype: torch.dtype, rel: bool) -> int:
+    """`smem_bytes` as the compiled kernel computes it."""
+    return _library().flash_attention_smem_bytes(head_dim, _ELEM_BYTES.get(dtype, 0),
+                                                 int(rel))
+
+
+def fits(head_dim: int, dtype: torch.dtype, rel: bool) -> bool:
+    need = smem_bytes(head_dim, dtype, rel)
+    return 0 < need <= MAX_SMEM_BYTES
+
+
+def check_fits(head_dim: int, dtype: torch.dtype, rel: bool) -> None:
+    """Raise ValueError where the kernel would be refused: a head_dim no
+    template serves, a dtype other than f32/bf16, or more shared memory
+    than a block can have."""
+    if not fits(head_dim, dtype, rel):
+        raise ValueError(
+            f"the K5 kernel takes head_dim 1..{HEAD_DIM_CAP} in float32 or "
+            f"bfloat16 within {MAX_SMEM_BYTES} B of shared memory per block; "
+            f"got head_dim={head_dim}, {dtype}, rel={rel} "
+            f"({smem_bytes(head_dim, dtype, rel)} B)"
+        )
+
+
+def use_flash(head_dim: int, rel: bool = False,
+              dtype: torch.dtype = torch.bfloat16) -> bool:
+    """The JAX dispatch rule on this card: rel-pos attention, or any style
+    when forced; head_dim within the cap and the kernel's shared memory."""
+    return fits(head_dim, dtype, rel) and (rel or flash_forced())
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = library()
+    lib.flash_attention_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+def _launch(q, k, v, mask, q_pos, rel_r, scale: float) -> torch.Tensor:
+    """One launch on the current stream over padded, contiguous inputs."""
+    b, nh, t_pad, hd = q.shape
+    rel = rel_r is not None
+    named = {"q": q, "k": k, "v": v, "q_pos": q_pos, "rel_r": rel_r}
+    for name, x in named.items():
+        if x is None:
+            continue
+        if x.device != q.device or x.dtype != q.dtype or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {q.dtype} tensor on {q.device}")
+        if name != "rel_r" and x.shape != q.shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, q {tuple(q.shape)}")
+    if mask is not None and (mask.dtype != torch.float32 or mask.shape != (b, t_pad)
+                             or mask.device != q.device or not mask.is_contiguous()):
+        raise ValueError(f"mask must be a contiguous float32 [{b}, {t_pad}] tensor "
+                         f"on {q.device}")
+    check_fits(hd, q.dtype, rel)
+    lib = _library()
+    out = torch.empty_like(q)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_launch(
+            q.data_ptr(), ptr(q_pos), k.data_ptr(), v.data_ptr(), ptr(rel_r), ptr(mask),
+            out.data_ptr(), b, nh, t_pad, hd, _ELEM_BYTES[q.dtype], float(scale), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+    launches["k5"] += 1
+    return out
+
+
+def pad_inputs(q, k, v, mask_bias, q_pos, rel_r):
+    """What `flash_attention` hands the kernel or its plain version: q, k, v
+    (and q_pos) padded with zeros to T_pad = pad_len(T), and the f32 key
+    mask padded with −inf (None when there is no mask and no padding).
+    Checks that q_pos and rel_r come together and rel_r's shape."""
+    b, nh, t, hd = q.shape
+    rel = rel_r is not None
+    if (q_pos is None) == rel:
+        raise ValueError("pass q_pos and rel_r together, or neither")
+    t_pad = pad_len(t)
+    if rel and tuple(rel_r.shape) != (nh, 2 * t_pad, hd):
+        raise ValueError(f"rel_r has shape {tuple(rel_r.shape)}, want "
+                         f"{(nh, 2 * t_pad, hd)} (built at pad_len(T) = {t_pad})")
+    mask = None if mask_bias is None else mask_bias.float()
+    if t_pad != t:
+        pad = (0, 0, 0, t_pad - t)
+        q, k, v = F.pad(q, pad), F.pad(k, pad), F.pad(v, pad)
+        if rel:
+            q_pos = F.pad(q_pos, pad)
+        valid = (torch.zeros((b, t), dtype=torch.float32, device=q.device)
+                 if mask is None else mask)
+        mask = F.pad(valid, (0, t_pad - t), value=float("-inf"))
+    return q, k, v, mask, q_pos
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask_bias: torch.Tensor | None = None,
+    *,
+    q_pos: torch.Tensor | None = None,
+    rel_r: torch.Tensor | None = None,
+    scale: float = 1.0,
+) -> torch.Tensor:
+    """Fused attention. q, k, v: [B, NH, T, hd]; `scale` multiplies the
+    summed scores before the mask (the conformer's (ac + bd)/sqrt(hd) op
+    order). mask_bias: [B, T] additive f32 key mask (0 / −inf). For the
+    Transformer-XL term pass q_pos (q + pos_bias_v, shaped as q) and rel_r
+    from `rel_table_rev` at T_pad = pad_len(T). Returns [B, NH, T, hd] in
+    q.dtype."""
+    t = q.shape[2]
+    q, k, v, mask, q_pos = pad_inputs(q, k, v, mask_bias, q_pos, rel_r)
+    if q.device.type == "cpu":
+        out = flash_attention_ref.attention(q, k, v, mask, q_pos=q_pos, rel_r=rel_r,
+                                            scale=scale)
+    elif q.device.type == "cuda":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        q_pos = None if q_pos is None else q_pos.contiguous()
+        out = _launch(q, k, v, None if mask is None else mask.contiguous(), q_pos,
+                      rel_r, scale)
+    else:
+        raise ValueError(f"no attention kernel for device {q.device}")
+    return out[:, :, :t] if out.shape[2] != t else out

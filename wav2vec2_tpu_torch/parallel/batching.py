@@ -10,15 +10,18 @@ on a side stream as soon as the batch's evidence is enqueued, so the copy
 (and the host grouping that waits only for it) overlaps the next batch's
 forward.
 
-Not ported yet: `align_stream`, the device mesh, int8 serving and the
-flash-attention switch.
+`use_flash_attention` routes the conformer rel-pos attention through the
+fused kernel K5 (`ops.flash_attention`); by default it is on on a CUDA
+device.
+
+Not ported yet: `align_stream`, the device mesh and int8 serving.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Sequence
 
 import numpy as np
@@ -151,7 +154,9 @@ class BatchAligner:
 
     `params` is the port's parameter tree (models.params), on any device:
     it is moved to `device` and, at bf16, its compute weights are stored in
-    bf16."""
+    bf16. `use_flash_attention` sets the config's switch of that name: None
+    (auto) turns it on on a CUDA device; True or False overrides a config
+    that arrived with the switch set either way."""
 
     def __init__(
         self,
@@ -163,10 +168,18 @@ class BatchAligner:
         hp: AlignerHyperParams | None = None,
         sample_rate_hz: int = 16000,
         normalize_on_device: bool = False,
+        use_flash_attention: bool | None = None,
     ):
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unsupported compute dtype {compute_dtype!r}")
         self.device = torch.device(device)
+        if use_flash_attention is None:
+            # auto, as the JAX engine enables it on its accelerator (int8
+            # serving, which the JAX engine keeps off the kernel, is not
+            # ported)
+            use_flash_attention = self.device.type == "cuda"
+        if model_cfg.use_flash_attention != bool(use_flash_attention):
+            model_cfg = replace(model_cfg, use_flash_attention=bool(use_flash_attention))
         self.cfg = model_cfg
         self.compute_dtype = (
             torch.float32 if compute_dtype == "float32" else torch.bfloat16
