@@ -151,16 +151,25 @@ def blocked_cases(rng):
     edge = edge_case(rng)
     odd = case("odd widths T_pad=37 S_pad=61 V=397", 3, 37, 397, 61,
                [37, 30, 5], [61, 44, 9])
+    # K3/K4 hold R-state strips in registers: R = 4 at S_pad = 2 048, R = 16
+    # at 4 100 (W not a multiple of R: the last strip runs past W) and at
+    # 8 192 with s_len = 2·t_len (the tightest band: most strips idle)
     return {
         "k2": [case("ragged B=8 T_pad=2400 S_pad=128 V=32", 8, 2400, 32, 128,
                     [2400, 2399, 2001, 1500, 999, 320, 17, 8],
                     [128, 127, 100, 128, 64, 128, 20, 16]), edge, odd],
         "k3": [case("ragged B=4 T_pad=2400 S_pad=128 V=392", 4, 2400, PHONEME_VOCAB, 128,
-                    [2400, 1777, 300, 64], [128, 90, 128, 40]), edge, odd],
+                    [2400, 1777, 300, 64], [128, 90, 128, 40]), edge, odd,
+               case("4-state strips B=2 T_pad=1200 S_pad=2048 V=392", 2, 1200, PHONEME_VOCAB,
+                    2048, [1200, 400], [2048, 600])],
         "k4": [case("ragged B=4 T_pad=2400 S_pad=1024 V=32", 4, 2400, 32, 1024,
                     [2400, 2000, 600, 100], [1024, 1000, 700, 150]),
                case("ragged B=4 T_pad=2400 S_pad=1024 V=392", 4, 2400, PHONEME_VOCAB, 1024,
-                    [2400, 2000, 600, 100], [1024, 1000, 700, 150]), edge, odd],
+                    [2400, 2000, 600, 100], [1024, 1000, 700, 150]), edge, odd,
+               case("partial last strip B=3 T_pad=2400 S_pad=4100 V=32", 3, 2400, 32, 4100,
+                    [2400, 2200, 90], [4100, 3000, 150]),
+               case("idle strips B=2 T_pad=600 S_pad=8192 V=392", 2, 600, PHONEME_VOCAB, 8192,
+                    [600, 300], [1200, 600])],
     }
 
 
@@ -571,6 +580,11 @@ def run_longform(device, cfg, params, vocab, minutes, card):
           f"(a) {tier} path == plain path on the card; (b) device stitch == stitch_log_probs "
           f"bit for bit; (c) grouping {exact}/{len(deltas)} exact, {within}/{len(deltas)} "
           f"within one frame; (d) {len(out.words)} words in order, monotone")
+    bp_bytes = int(np.prod(viterbi_cuda.bp_scratch_shape(tier, 1, t_len, tokens.shape[0])))
+    r, threads = viterbi_cuda.library_strip(tokens.shape[0])
+    print(f"{tier} at the {minutes:g} min shape: {r}-state strips on {threads} threads; "
+          f"backpointer scratch {bp_bytes} B per launch (2 bits a cell, [1, {t_len}, "
+          f"{bp_bytes // t_len}] uint8)")
     print(f"time: long-form {minutes:g} min {minutes * 60 / wall:.1f}x realtime "
           f"({wall:.3f} s wall, first call), forward {fwd_ms:.3f} ms, DP ({tier}) "
           f"{k_ms:.3f} ms (CUDA events, median of 5), plain DP {p_ms:.1f} ms, peak device "
@@ -615,6 +629,9 @@ def run_longform_phoneme(device, cfg_ph, params_ph, vocab, minutes, card):
     if err:
         raise AssertionError(f"phoneme long-form: {tier} path differs from the plain version")
     k_ms, p_ms = interleaved_ms(kernel, plain, 5, 1)
+    bp_bytes = int(np.prod(viterbi_cuda.bp_scratch_shape(tier, 1, t_len, tokens.shape[0])))
+    print(f"{tier} at the phoneme shape: {viterbi_cuda.library_strip(tokens.shape[0])[0]}-state "
+          f"strips; backpointer scratch {bp_bytes} B per launch (2 bits a cell)")
     print(f"long-form, phoneme vocab: {minutes:g} min bf16 (T={t_len}, S={s_len}, "
           f"S_pad={tokens.shape[0]}, V={v}) -> tier {tier}, launches {counts}; "
           f"{len(out.words)} words in order, monotone; {tier} path == plain path")
@@ -650,8 +667,11 @@ def hour_scale(device, card):
         k4_ms, k1_ms = interleaved_ms(
             lambda: viterbi_cuda.viterbi_batch(lp, tok, *lens, tier="k4"),
             lambda: viterbi_cuda.viterbi_batch(lp, tok, *lens, tier="k1"), 2, 2)
+        bp_bytes = int(np.prod(viterbi_cuda.bp_scratch_shape("k4", 1, HOUR_FRAMES, s_pad)))
         print(f"hour scale: T={HOUR_FRAMES} V={v} S={s_len} S_pad={s_pad}: K4 path == K1 path; "
-              f"K4 {k4_ms:.3f} ms, K1 {k1_ms:.3f} ms (CUDA events; K1, K4, K4, K1) {card}")
+              f"K4 {k4_ms:.3f} ms ({viterbi_cuda.library_strip(s_pad)[0]}-state strips, "
+              f"backpointer scratch {bp_bytes} B), K1 {k1_ms:.3f} ms (CUDA events; K1, K4, K4, "
+              f"K1) {card}")
         rows.append((HOUR_FRAMES, s_pad, v, k1_ms, k4_ms))
         del lp
     return rows
@@ -660,14 +680,16 @@ def hour_scale(device, card):
 def tier_crossover(device, card, hour_rows):
     """K1 vs K4 on one utterance at V=32 and T in {599, 1 024, 1 499,
     6 000, 30 000} (and 180 000 from `hour_scale`), S growing with T as
-    transcripts do: the measurement behind K1_MAX_FRAMES."""
+    transcripts do: the measurement behind K1_MAX_FRAMES. T = 20 000 at
+    S_pad = 16 384 runs K4's widest strips (512 threads of 32 states)."""
     import torch
 
     from wav2vec2_tpu_torch.ops import viterbi_cuda
 
     rng = np.random.default_rng(7)
     rows = []
-    for t, s_pad in ((599, 256), (1_024, 512), (1_499, 768), (6_000, 2_432), (30_000, 12_032)):
+    for t, s_pad in ((599, 256), (1_024, 512), (1_499, 768), (6_000, 2_432), (30_000, 12_032),
+                     (20_000, 16_384)):
         lp = torch.from_numpy(random_log_probs(rng, 1, t, 32)).to(device)
         tok = torch.from_numpy(rng.integers(0, 32, size=(1, s_pad)).astype(np.int32)).to(device)
         lens = [torch.tensor([x], dtype=torch.int32, device=device) for x in (t, s_pad - 5)]
@@ -726,16 +748,22 @@ def time_batch_path(aligner, vocab, batch, repeats):
 
 def flash_cases():
     """(name, B, NH, T, hd, dtype, rel, masked) for K5 against its plain
-    version: both dtypes, rel on and off, masked and unmasked, at odd T
-    (37 and 255 pad to 256, 257 and 499 to 512, 1 499 — the 30 s chunk — to
-    1 536) and head dims 32, 64, 128 and 80 (zero-filled to the 128-wide
-    template); then the slice's shape with B cut to 4 (bf16) and 2 (f32)."""
+    version: both dtypes (bf16 through the tensor-core kernel, f32 through
+    the FMA kernel), rel on and off, masked and unmasked, at odd T (37 and
+    255 pad to 256, 257 and 499 to 512, 1 499 — the 30 s chunk — to 1 536)
+    and head dims 16, 32, 64, 128 and 80 (zero-filled to the 128-wide
+    template); bf16 at T = 1 499 with hd 64 and 128; then the slice's shape
+    with B cut to 4 (bf16) and 2 (f32)."""
     cases = []
-    for t, hd in ((37, 32), (255, 64), (257, 128), (499, 64), (1499, 32), (100, 80)):
+    for t, hd in ((37, 32), (255, 64), (257, 128), (499, 64), (1499, 32), (100, 80),
+                  (300, 16)):
         for dtype in ("float32", "bfloat16"):
             for rel, masked in ((True, True), (True, False), (False, True), (False, False)):
                 cases.append((f"T={t} hd={hd} {dtype} rel={int(rel)} mask={int(masked)}",
                               2, 2, t, hd, dtype, rel, masked))
+    for hd in (64, 128):
+        cases.append((f"T=1499 hd={hd} bfloat16 rel=1 mask=1", 2, 2, 1499, hd, "bfloat16",
+                      True, True))
     cases.append(("slice B=4 NH=16 T=499 hd=64 bfloat16 rel mask",
                   4, 16, 499, 64, "bfloat16", True, True))
     cases.append(("slice B=2 NH=16 T=499 hd=64 float32 rel mask",
@@ -872,6 +900,10 @@ def time_flash(device, card, self_attn, b, nh, t, hd):
         core()
         core_ms = cuda_time_ms(core, 10)
     bound_ms, bound_by = flash_bound(b, nh, t_pad, hd, 2, PEAK_BF16_OPS_PER_S)
+    work = 6 * t_pad * t_pad * hd * b * nh
+    print(f"time: K5 bf16 (tensor cores) {work / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s of the "
+          f"6·T_pad²·hd work, {bound_ms / k_ms:.1%} of its bound ({bound_ms:.4f} ms by "
+          f"{bound_by}); SDPA {lib_ms:.4f} ms, K5/SDPA {k_ms / lib_ms:.2f} {card}")
     print(f"time: K5 kernel {k_ms:.4f} ms vs plain PyTorch {p_ms:.3f} ms at B={b} NH={nh} "
           f"T={t} (T_pad={t_pad}) hd={hd} bf16 rel mask (CUDA events, medians; plain, kernel, "
           f"kernel, plain); bound {bound_ms:.4f} ms by {bound_by}; relative error "
@@ -902,7 +934,7 @@ def kernel_time_split(fwd):
     groups = {"K5": 0.0, "GEMM": 0.0, "convolution": 0.0, "other": 0.0}
     for name, ms in kernels:
         low = name.lower()
-        group = ("K5" if "flash_attention_kernel" in low
+        group = ("K5" if "flash_attention" in low
                  else "GEMM" if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass"))
                  else "convolution" if "conv" in low or "cudnn" in low
                  else "other")
@@ -1053,7 +1085,8 @@ def main() -> int:
     print(f"build: {', '.join(s.name for s in cuda_build.SOURCES)} -> {info['library']} in "
           f"{info['seconds']:.3f} s (nvcc {' '.join(cuda_build.NVCC_FLAGS)}); ptxas: {ptxas}")
 
-    for shape in ((499, 256, 32), (3047, 128, 32), (37, 61, 397), (HOUR_FRAMES, 12_672, 392)):
+    for shape in ((499, 256, 32), (3047, 128, 32), (37, 61, 397), (HOUR_FRAMES, 12_672, 392),
+                  (2400, 4100, 32)):
         for tier in viterbi_cuda.TIERS:
             if viterbi_cuda.library_smem_bytes(tier, *shape) != viterbi_cuda.smem_bytes(tier, *shape):
                 raise AssertionError(f"{tier} at {shape}: the wrapper's shared-memory size "

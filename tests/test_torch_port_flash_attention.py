@@ -171,6 +171,36 @@ def test_shared_memory_within_one_block(hd, dtype, rel):
     fa.check_fits(hd, dtype, rel)
 
 
+@pytest.mark.parametrize("hd,dtype,rel,want", [
+    # bf16, tensor cores: 8 warps (128 query rows) up to width 64, 4 (64
+    # rows) at 128; bf16 rows of stride width + 8 (q[, q_pos], two stages
+    # of K, V[, rows + 64 R rows]), with rel a [16, 72] f32 bd tile a
+    # warp, and two 64-key f32 mask tiles
+    (16, torch.bfloat16, True, 896 * 24 * 2 + 8 * 4608 + 512),
+    (32, torch.bfloat16, False, 384 * 40 * 2 + 512),
+    (64, torch.bfloat16, True, 896 * 72 * 2 + 8 * 4608 + 512),
+    (64, torch.bfloat16, False, 384 * 72 * 2 + 512),
+    (80, torch.bfloat16, True, 640 * 136 * 2 + 4 * 4608 + 512),
+    (128, torch.bfloat16, True, 640 * 136 * 2 + 4 * 4608 + 512),
+    # f32, FMAs: f32 rows of stride width + 1, the score tile, row vectors
+    (64, torch.float32, True, 117760),
+    (128, torch.float32, True, 215808),
+    (16, torch.float32, False, 31232),
+])
+def test_shared_memory_sizes_are_pinned(hd, dtype, rel, want):
+    assert fa.smem_bytes(hd, dtype, rel) == want <= fa.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("dtype,want", [
+    (torch.bfloat16, "mma"), (torch.float32, "fma"), (torch.float16, None),
+])
+def test_dtype_picks_the_kernel(dtype, want):
+    """bf16 launches the tensor-core kernel, f32 the exact FMA kernel (the
+    TPU's HIGHEST path); no other dtype has a kernel."""
+    assert fa.kernel_for(dtype) == want
+    assert fa.fits(64, dtype, True) == (want is not None)
+
+
 @pytest.mark.parametrize("hd,dtype", [(0, torch.float32), (129, torch.float32),
                                       (64, torch.float16)])
 def test_check_fits_refuses_what_no_template_serves(hd, dtype):

@@ -61,7 +61,10 @@ def _check_oracle(paths, lp, tok, t_lens, s_lens):
     (180000, 11136, 32, "k4"),       # 60 min char long-form
     (180000, 12672, 392, "k4"),      # 60 min phoneme long-form
     (30000, 128, 392, "k3"),         # wide vocab, short transcript
-    (5000, 3500, 8000, "k1"),        # neither window fits: K1 reads no window
+    (5000, 3700, 8000, "k1"),        # neither window fits: K1 reads no window
+    (5000, 3500, 8000, "k3"),        # K3's window fits now that rows live in registers
+    (1000, 16_384, 32, "k4"),        # K4's widest strips: 512 threads of 32 states
+    (1000, 16_388, 32, "k1"),        # past the strips: K1, whose rows still fit
 ])
 def test_select_tier_table(t_pad, s_pad, v, want):
     assert viterbi_cuda.select_tier(t_pad, s_pad, v) == want
@@ -69,8 +72,47 @@ def test_select_tier_table(t_pad, s_pad, v, want):
 
 
 def test_select_tier_raises_past_shared_memory():
+    """Past MAX_STRIP_STATES (16 384) only K1 can serve, and its rows do
+    not fit in shared memory above S_pad ≈ 19 000."""
+    assert viterbi_cuda.MAX_STRIP_STATES == 16_384
+    viterbi_cuda.check_fits("k4", 100, 16_384, 32)
     with pytest.raises(ValueError, match="shared memory"):
-        viterbi_cuda.select_tier(100, 20000, 32)
+        viterbi_cuda.select_tier(100, 20_000, 32)
+    with pytest.raises(ValueError, match="states"):
+        viterbi_cuda.check_fits("k4", 100, 16_388, 32)
+
+
+@pytest.mark.parametrize("t_pad,s_pad,v,want", [
+    (499, 256, 32, "k1"),            # the serving batch
+    (1511, 128, 32, "k2"),           # the long bucket
+    (8999, 128, 392, "k3"),          # 3 min long-form, phoneme vocab
+    (29999, 12032, 32, "k4"),        # 10 min long-form
+])
+def test_select_tier_routes_the_smoke_shapes(t_pad, s_pad, v, want):
+    """The shapes chip_smoke.py's paths send keep their tiers."""
+    assert viterbi_cuda.select_tier(t_pad, s_pad, v) == want
+
+
+@pytest.mark.parametrize("tier,shape,want", [
+    ("k1", (499, 256, 32), 3072),
+    ("k2", (1511, 128, 32), 64 * 128 + 528 + 1511 * 32),
+    ("k3", (8999, 128, 392), 64 * 128 + 528 + 128),
+    ("k4", (29999, 12032, 32), 64 * 32 + 528 + 128),
+    ("k4", (37, 61, 397), 64 * 400 + 528 + 128),
+])
+def test_shared_memory_sizes_are_pinned(tier, shape, want):
+    """K2–K4: the f32 window, halo and final scores, and K2's packed bp
+    or K3/K4's backtrace window; no DP row in shared memory."""
+    assert viterbi_cuda.smem_bytes(tier, *shape) == want
+
+
+@pytest.mark.parametrize("tier,want", [
+    ("k1", (3, 101, 61)), ("k2", (0,)), ("k3", (3, 101, 16)), ("k4", (3, 101, 16)),
+])
+def test_backpointer_scratch_is_two_bits_a_cell(tier, want):
+    """K3/K4 keep 2-bit backpointers in device memory: [B, T_pad, W/4]
+    uint8 with W = S_pad rounded up to 4."""
+    assert viterbi_cuda.bp_scratch_shape(tier, 3, 101, 61) == want
 
 
 @pytest.mark.parametrize("tier,shape", [

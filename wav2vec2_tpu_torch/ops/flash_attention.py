@@ -2,11 +2,15 @@
 
 Counterpart of `wav2vec2_tpu.ops.flash_attention`. `flash_attention` pads
 T to `pad_len(T)` (padded keys masked with −inf, padded query rows sliced
-off on return), then, for CUDA tensors, launches the hand-written kernel
+off on return), then, for CUDA tensors, launches a hand-written kernel of
 `csrc/flash_attention.cu` (the port of `_attn_kernel`) or raises; for CPU
 tensors it runs the plain version `ops.flash_attention_ref.attention`.
-There is no fallback from the kernel to the plain version. `launches`
-counts the kernel's launches.
+There is no fallback from the kernel to the plain version. The kernel
+follows the dtype (`kernel_for`): bf16 runs on the tensor cores
+(`flash_attention_mma_kernel`: bf16 operands, f32 accumulation, as the
+TPU's bf16 path), f32 as exact FMAs on the CUDA cores
+(`flash_attention_fma_kernel`: the TPU's Precision.HIGHEST path of the
+parity forward). `launches["k5"]` counts the launches of both.
 
 The relative table is `rel_table_rev`: R_rev[h, m] = (pe_{T_pad−m} ·
 W_pos)[h·hd : (h+1)·hd] for m ∈ [0, 2·T_pad), over the Transformer-XL
@@ -41,10 +45,13 @@ from .cuda_build import MAX_SMEM_BYTES, library
 BLOCK_Q = 256  # T is padded to a multiple of this, as in the JAX package
 HEAD_DIM_CAP = 128
 FORCE_ENV = "WAV2VEC2_FLASH_FORCE"
-# the kernel's tiles (csrc/flash_attention.cu): 64 query rows, 64 keys
+# the kernels' tiles (csrc/flash_attention.cu): 64 query rows (the FMA
+# kernel), 64 keys
 KERNEL_BQ = 64
 KERNEL_BK = 64
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+# dtype -> kernel: "mma" on the tensor cores, "fma" on the CUDA cores
+_KERNELS = {torch.bfloat16: "mma", torch.float32: "fma"}
 launches = {"k5": 0}
 
 
@@ -97,16 +104,33 @@ def _template_width(head_dim: int) -> int:
     return 0
 
 
+def kernel_for(dtype: torch.dtype) -> str | None:
+    """The kernel a CUDA tensor of `dtype` launches: "mma" (bf16, tensor
+    cores), "fma" (f32, CUDA cores), or None (no kernel takes the dtype)."""
+    return _KERNELS.get(dtype)
+
+
 def smem_bytes(head_dim: int, dtype: torch.dtype, rel: bool) -> int:
-    """Shared memory one block needs: `flash_attention_smem_bytes` of the
-    CUDA source (chip_smoke.py holds the two equal); 0 if no template
-    serves `head_dim` or the dtype."""
-    width, elem = _template_width(head_dim), _ELEM_BYTES.get(dtype, 0)
-    if not width or not elem:
+    """Shared memory one block of `kernel_for(dtype)` needs:
+    `flash_attention_smem_bytes` of the CUDA source (chip_smoke.py holds the
+    two equal); 0 if no template serves `head_dim` or the dtype."""
+    width, kernel = _template_width(head_dim), kernel_for(dtype)
+    if not width or not kernel:
         return 0
-    ld = width + (1 if elem == 4 else 2)
+    if kernel == "mma":
+        # warps of 16 query rows: 8 up to width 64, 4 at 128. bf16 rows of
+        # stride width + 8: q[, q_pos], two stages of K, V[, an R window of
+        # block rows + 64]; with rel, one [16, 72] f32 bd tile a warp; two
+        # stages of the key tile's f32 mask
+        warps = 8 if width <= 64 else 4
+        bq = 16 * warps
+        rows = bq * (2 if rel else 1) + 2 * (2 * KERNEL_BK + (bq + KERNEL_BK if rel else 0))
+        bd = warps * 16 * (KERNEL_BK + 8) * 4 if rel else 0
+        return rows * (width + 8) * 2 + bd + 2 * KERNEL_BK * 4
+    # f32 rows of stride width + 1: q, k, v[, q_pos, a 127-row R window],
+    # then the [64, 68] f32 score tile and three row vectors
     rows = KERNEL_BQ + 2 * KERNEL_BK + (2 * KERNEL_BQ + KERNEL_BK - 1 if rel else 0)
-    tiles = -(-rows * ld * elem // 16) * 16
+    tiles = -(-rows * (width + 1) * 4 // 16) * 16
     return tiles + KERNEL_BQ * (KERNEL_BK + 4) * 4 + 3 * KERNEL_BQ * 4
 
 
@@ -144,9 +168,11 @@ def use_flash(head_dim: int, rel: bool = False,
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = library()
-    lib.flash_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
-    lib.flash_attention_launch.restype = ctypes.c_int
+    for kernel in _KERNELS.values():
+        launch = getattr(lib, f"flash_attention_{kernel}_launch")
+        launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+        launch.restype = ctypes.c_int
     lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
     return lib
@@ -177,12 +203,13 @@ def _launch(q, k, v, mask, q_pos, rel_r, scale: float) -> torch.Tensor:
 
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
+        kernel = kernel_for(q.dtype)
+        err = getattr(lib, f"flash_attention_{kernel}_launch")(
             q.data_ptr(), ptr(q_pos), k.data_ptr(), v.data_ptr(), ptr(rel_r), ptr(mask),
-            out.data_ptr(), b, nh, t_pad, hd, _ELEM_BYTES[q.dtype], float(scale), stream,
+            out.data_ptr(), b, nh, t_pad, hd, float(scale), stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention_{kernel} launch failed: cudaError {err}")
     launches["k5"] += 1
     return out
 

@@ -5,10 +5,12 @@
   one-thread backtrace.
 - K2, K3, K4 (`csrc/viterbi_blocked.cu`), the ports of
   `_make_blocked_kernel`'s three instances: 8-frame blocks streamed
-  through a double-buffered shared-memory window. K2 reads pre-gathered
-  emissions and keeps 2-bit bp in shared memory; K3 reads pre-gathered
-  emissions with uint8 bp in device memory; K4 reads the raw log-probs with
-  uint8 bp in device memory. K3 and K4 backtrace by 8-frame blocks.
+  through a double-buffered shared-memory window, each thread holding a
+  strip of states in registers. All three keep 2-bit backpointers
+  ([T_pad, W/4] bytes, W = S_pad rounded up to 4): K2 in shared memory
+  over pre-gathered emissions; K3 in device memory over pre-gathered
+  emissions; K4 in device memory over the raw log-probs. K3 and K4
+  backtrace by 8-frame blocks.
 
 `viterbi_batch` and `viterbi_single` pick a tier with `select_tier` (or take
 `tier=`). For tensors on the CPU they run the plain PyTorch version of that
@@ -36,6 +38,8 @@ TIERS = ("k1", "k2", "k3", "k4")
 # 700 W; times in PERF.md), so this is the floor of 512 frames that keeps
 # the 10 s serving shape (T = 499) on K1.
 K1_MAX_FRAMES = 512
+# Most states a K2–K4 block takes: 512 threads of 32-state strips
+MAX_STRIP_STATES = 512 * 32
 launches = {tier: 0 for tier in TIERS}
 
 
@@ -52,7 +56,17 @@ def _library() -> ctypes.CDLL:
         size = getattr(lib, f"viterbi_{tier}_smem_bytes")
         size.argtypes = [ctypes.c_int] * 3
         size.restype = ctypes.c_size_t
+    lib.viterbi_blocked_strip.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.viterbi_blocked_strip.restype = ctypes.c_int
     return lib
+
+
+def library_strip(s_pad: int) -> tuple[int, int]:
+    """(R, threads) of a K2–K4 launch at `s_pad`, as the compiled
+    launcher chooses them: R states a thread, R = 0 if no strip serves."""
+    threads = ctypes.c_int(0)
+    r = _library().viterbi_blocked_strip(s_pad, ctypes.byref(threads))
+    return r, threads.value
 
 
 def library_smem_bytes(tier: str, t_pad: int, s_pad: int, v: int) -> int:
@@ -70,15 +84,26 @@ def _round_up4(x: int) -> int:
 def smem_bytes(tier: str, t_pad: int, s_pad: int, v: int) -> int:
     """Shared memory one block of `tier` needs: the sums of the
     `viterbi_*_smem_bytes` functions of the CUDA sources (`library_smem_bytes`
-    reads those; chip_smoke.py holds the two equal)."""
+    reads those; chip_smoke.py holds the two equal). K2–K4 keep their DP
+    rows in registers: the [2, 8, ·] f32 window, a 512 B halo, 16 B for
+    the final scores, and the packed bp (K2) or an [8, 16] B backtrace
+    window (K3, K4)."""
     w = _round_up4(s_pad)
     if tier == "k1":
         return 12 * s_pad  # two f32 rows + int32 tokens
-    rows_and_tokens = 12 * w
-    if tier == "k2":
-        return 64 * w + rows_and_tokens + t_pad * (w // 4)
     window = 64 * (_round_up4(v) if tier == "k4" else w)
-    return window + rows_and_tokens + 128  # + the [8, 16] backtrace window
+    return window + 512 + 16 + (t_pad * (w // 4) if tier == "k2" else 128)
+
+
+def bp_scratch_shape(tier: str, b: int, t_pad: int, s_pad: int) -> tuple[int, ...]:
+    """The uint8 backpointer scratch the wrapper allocates for `tier`: K1
+    one byte a cell, K3/K4 2 bits a cell ([B, T_pad, W/4]), K2 none (its
+    bp stay in shared memory)."""
+    if tier == "k1":
+        return (b, t_pad, s_pad)
+    if tier == "k2":
+        return (0,)
+    return (b, t_pad, _round_up4(s_pad) // 4)
 
 
 def use_raw_gather(v: int, s_pad: int) -> bool:
@@ -95,9 +120,10 @@ def select_tier(t_pad: int, s_pad: int, v: int) -> str:
     budgets in place of the TPU's VMEM: K1 up to K1_MAX_FRAMES; else K2
     when its on-chip bp fits; else K4 or K3 by `use_raw_gather`, the other
     one if the preferred window does not fit, and K1 (no window) if neither
-    does. Raises ValueError when no tier fits: the DP rows and tokens of
-    S_pad alone exceed shared memory above S_pad ≈ 19 000."""
-    fits = {t: smem_bytes(t, t_pad, s_pad, v) <= MAX_SMEM_BYTES for t in TIERS}
+    does. Raises ValueError when no tier fits: above S_pad = 16 384
+    (MAX_STRIP_STATES, K2–K4's strips) only K1 can serve, and its DP rows
+    and tokens exceed shared memory above S_pad ≈ 19 000."""
+    fits = {t: _fits(t, t_pad, s_pad, v) for t in TIERS}
     if t_pad <= K1_MAX_FRAMES and fits["k1"]:
         return "k1"
     if fits["k2"]:
@@ -107,15 +133,26 @@ def select_tier(t_pad: int, s_pad: int, v: int) -> str:
         if fits[tier]:
             return tier
     raise ValueError(
-        f"S_pad={s_pad} (V={v}) needs {smem_bytes('k1', t_pad, s_pad, v)} B of "
+        f"S_pad={s_pad} (V={v}) is more than the {MAX_STRIP_STATES} states of "
+        f"K2–K4's strips, and K1 needs {smem_bytes('k1', t_pad, s_pad, v)} B of "
         f"shared memory per block for its DP rows and tokens, more than "
         f"{MAX_SMEM_BYTES}"
     )
 
 
+def _fits(tier: str, t_pad: int, s_pad: int, v: int) -> bool:
+    if tier != "k1" and _round_up4(s_pad) > MAX_STRIP_STATES:
+        return False
+    return smem_bytes(tier, t_pad, s_pad, v) <= MAX_SMEM_BYTES
+
+
 def check_fits(tier: str, t_pad: int, s_pad: int, v: int) -> None:
-    """Raise ValueError if `tier` at this shape needs more shared memory
-    than a block can have: such a launch would be refused."""
+    """Raise ValueError if `tier` cannot take this shape: more states than
+    K2–K4's strips hold, or more shared memory than a block can have. Such
+    a launch would be refused."""
+    if tier != "k1" and _round_up4(s_pad) > MAX_STRIP_STATES:
+        raise ValueError(f"{tier} takes at most {MAX_STRIP_STATES} states (S_pad rounded "
+                         f"up to 4), got S_pad={s_pad}")
     need = smem_bytes(tier, t_pad, s_pad, v)
     if need > MAX_SMEM_BYTES:
         raise ValueError(
@@ -159,12 +196,7 @@ def _launch(tier: str, src, tokens, t_lens, s_lens, v: int) -> torch.Tensor:
     check_fits(tier, t_pad, s_pad, v)
     lib = _library()
     dev = src.device
-    if tier == "k2":
-        bp = torch.empty(0, dtype=torch.uint8, device=dev)
-    elif tier == "k1":
-        bp = torch.empty((b, t_pad, s_pad), dtype=torch.uint8, device=dev)
-    else:
-        bp = torch.empty((b, t_pad, _round_up4(s_pad)), dtype=torch.uint8, device=dev)
+    bp = torch.empty(bp_scratch_shape(tier, b, t_pad, s_pad), dtype=torch.uint8, device=dev)
     paths = torch.empty((b, t_pad), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
