@@ -5,10 +5,10 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from `wav2vec2_tpu_torch/csrc/` with one
-`nvcc` call (the Viterbi kernel K1, its blocked tiers K2, K3, K4, and the
-fused rel-pos attention kernel K5), holds each against its plain PyTorch
-version (the Viterbi kernels also against the numpy oracle, K4 against K1
-at hour scale), and drives the port's paths through the entry points a
+`nvcc` call (the Viterbi kernel K1 in its two modes, its blocked tiers K2,
+K3, K4, and the fused rel-pos attention kernel K5), holds each against its
+plain PyTorch version (the Viterbi kernels also against the numpy oracle,
+K4 against K1 at hour scale), and drives the port's paths through the entry points a
 user calls, with random weights from a numpy seed:
 
 - wav2vec2-base at full width: `BatchAligner.submit_padded_batch` on
@@ -23,11 +23,17 @@ user calls, with random weights from a numpy seed:
   K5 against the f32 factorized forward, and `ForcedAlignerBuilder` on a
   4-block model directory (no K5, as in the JAX package).
 
+K1 runs in its resident mode at the serving shape (checked on the batch
+entry through its per-mode launch counts) and in its device mode on the
+shapes whose backpointers do not fit; the smoke times both modes on the
+same inputs, and the resident mode's strip widths.
+
 Each path runs with the kernels' launch counts set to 0 just before it and
-read just after. It times the kernels (CUDA events) beside their plain
-versions, their bounds and, for K5, one PyTorch call computing the same
-function; the forwards, the long-form path and the batch paths with their
-drain. Every failure raises and the exit code is non-zero; without a CUDA
+read just after. It times the kernels on the device alone (`kernel_ms`:
+launches queued behind a spin kernel, so the wrappers' host cost is out)
+beside their plain versions, their bounds and, for K5, one PyTorch call
+computing the same function; the forwards, the long-form path and the
+batch paths with their drain on CUDA events around whole calls. Every failure raises and the exit code is non-zero; without a CUDA
 device it exits non-zero before running anything. The line before the
 last is the `kernels` JSON object; the last line of standard output is one
 JSON object naming the device.
@@ -116,6 +122,18 @@ def kernel_cases(rng):
     cases.append(("ragged t_len B=16 T_pad=499", random_log_probs(rng, b, t, v),
                   rng.integers(0, v, size=(b, S_PAD)).astype(np.int32), t_lens, s_lens))
     cases.append(edge_case(rng))
+    # K1's resident ring of 4 slots refilled through the 4-byte copies
+    # (V = 29: V * 4 not a multiple of 16) and through the bulk copies with
+    # phoneme-size rows
+    cases.append(("4-byte ring copies B=3 T_pad=601 S_pad=61 V=29",
+                  random_log_probs(rng, 3, 601, 29),
+                  rng.integers(0, 29, size=(3, 61)).astype(np.int32),
+                  np.array([601, 555, 37], np.int32), np.array([61, 44, 9], np.int32)))
+    cases.append(("ring refills B=4 T=499 S_pad=256 V=392",
+                  random_log_probs(rng, 4, t, PHONEME_VOCAB),
+                  rng.integers(0, PHONEME_VOCAB, size=(4, S_PAD)).astype(np.int32),
+                  np.array([499, 499, 300, 17], np.int32),
+                  np.array([256, 131, 250, 30], np.int32)))
     b, t, s_pad = 4, 1499, 768
     cases.append(("large B=4 T=1499 S_pad=768", random_log_probs(rng, b, t, v),
                   rng.integers(0, v, size=(b, s_pad)).astype(np.int32),
@@ -191,10 +209,12 @@ def oracle_rows(t_lens, s_lens, max_cells=300_000, max_rows=3):
     return rows or [int(order[0])]
 
 
-def check_kernel(device, cases, tier="k1"):
+def check_kernel(device, cases, tier="k1", modes=None):
     """Kernel `tier` (forced) vs its plain PyTorch version (all rows, all
-    frames) and vs the numpy oracle (a few rows), bit-identical. Returns the
-    max abs path difference (0)."""
+    frames) and vs the numpy oracle (a few rows), bit-identical. For K1,
+    the mode each case ran in (from `k1_launches`) goes into `modes`
+    (case name -> mode) where given. Returns the max abs path difference
+    (0)."""
     import torch
 
     from wav2vec2_tpu_torch.ops import viterbi_cuda, viterbi_ref
@@ -202,7 +222,12 @@ def check_kernel(device, cases, tier="k1"):
     worst = 0
     for name, lp, tok, t_lens, s_lens in cases:
         args = [torch.from_numpy(a).to(device) for a in (lp, tok, t_lens, s_lens)]
+        before = dict(viterbi_cuda.k1_launches)
         got = viterbi_cuda.viterbi_batch(*args, tier=tier).cpu().numpy()
+        ran = [m for m, n in viterbi_cuda.k1_launches.items() if n != before[m]]
+        mode = f" in the {ran[0]} mode" if ran else ""
+        if modes is not None and ran:
+            modes[name] = ran[0]
         plain = plain_version(tier, *args).cpu().numpy()
         diff = int(np.abs(got.astype(np.int64) - plain).max())
         worst = max(worst, diff)
@@ -217,8 +242,8 @@ def check_kernel(device, cases, tier="k1"):
                 lp[j, :t_i], tok[j, :s_i])], np.int32)
             if not (got[j, :t_i] == ref).all() or not (got[j, t_i:] == ref[-1]).all():
                 raise AssertionError(f"{tier} {name}: row {j} differs from viterbi_numpy")
-        print(f"kernel check {tier} [{name}]: paths bit-identical to the plain version "
-              f"({got.shape[0]} rows) and to viterbi_numpy (rows {rows})")
+        print(f"kernel check {tier}{mode} [{name}]: paths bit-identical to the plain "
+              f"version ({got.shape[0]} rows) and to viterbi_numpy (rows {rows})")
     return worst
 
 
@@ -262,33 +287,75 @@ def cuda_time_ms(fn, repeats):
     return statistics.median(times)
 
 
-def interleaved_ms(kernel, plain, kernel_repeats, plain_repeats):
-    """Kernel and plain version timed in turns (plain, kernel, kernel,
-    plain); the median of each pair of medians."""
+def kernel_ms(fn, launches, repeats=3):
+    """Device time of one call of `fn` without the host's cost of enqueuing
+    it: `launches` calls are queued behind a spin kernel that outlasts
+    their enqueue, so they run back to back between two CUDA events; the
+    median over `repeats` of the elapsed time over `launches`. (A call timed
+    alone between two events measures the wrapper's Python and launch cost
+    wherever that exceeds the kernel's.)"""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e9 * (2 * launches * host_s + 1e-3)))  # ~2 GHz clock
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def turns_ms(fns, launches):
+    """{name: ms} for the kernel calls of `fns`, each by `kernel_ms`, timed
+    in turns, in order and then reversed; the median of each one's two."""
+    times = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            times[name].append(kernel_ms(fns[name], launches))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def interleaved_ms(kernel, plain, kernel_launches, plain_repeats):
+    """Kernel (`kernel_ms`) and plain version (`cuda_time_ms`) timed in
+    turns (plain, kernel, kernel, plain); the median of each pair."""
     import torch
 
     kernel(), plain()
     torch.cuda.synchronize()
-    p1, k1 = cuda_time_ms(plain, plain_repeats), cuda_time_ms(kernel, kernel_repeats)
-    k2, p2 = cuda_time_ms(kernel, kernel_repeats), cuda_time_ms(plain, plain_repeats)
+    p1, k1 = cuda_time_ms(plain, plain_repeats), kernel_ms(kernel, kernel_launches)
+    k2, p2 = kernel_ms(kernel, kernel_launches), cuda_time_ms(plain, plain_repeats)
     return statistics.median([k1, k2]), statistics.median([p1, p2])
 
 
 def reset_launches():
     from wav2vec2_tpu_torch.ops import flash_attention, viterbi_cuda
 
-    for counts in (viterbi_cuda.launches, flash_attention.launches):
+    for counts in (viterbi_cuda.launches, viterbi_cuda.k1_launches, flash_attention.launches):
         for name in counts:
             counts[name] = 0
 
 
 def read_launches():
+    """Launches per kernel since `reset_launches`, and K1's per mode
+    ("k1_resident", "k1_device")."""
     import torch
 
     from wav2vec2_tpu_torch.ops import flash_attention, viterbi_cuda
 
     torch.cuda.synchronize()
-    return {**viterbi_cuda.launches, **flash_attention.launches}
+    return {**viterbi_cuda.launches, **flash_attention.launches,
+            **{f"k1_{mode}": n for mode, n in viterbi_cuda.k1_launches.items()}}
 
 
 def batch_inputs(rng, vocab, batch, seconds, n_words=None, s_pad=S_PAD):
@@ -553,7 +620,7 @@ def run_longform(device, cfg, params, vocab, minutes, card):
             torch.tensor([s_len], dtype=torch.int32, device=device))
     kernel = lambda: viterbi_cuda.viterbi_batch(*args)  # noqa: E731
     path = kernel()[0].cpu().numpy()
-    k_ms = cuda_time_ms(kernel, 5)
+    k_ms = kernel_ms(kernel, 5)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -580,14 +647,14 @@ def run_longform(device, cfg, params, vocab, minutes, card):
           f"(a) {tier} path == plain path on the card; (b) device stitch == stitch_log_probs "
           f"bit for bit; (c) grouping {exact}/{len(deltas)} exact, {within}/{len(deltas)} "
           f"within one frame; (d) {len(out.words)} words in order, monotone")
-    bp_bytes = int(np.prod(viterbi_cuda.bp_scratch_shape(tier, 1, t_len, tokens.shape[0])))
+    bp_bytes = int(np.prod(viterbi_cuda.bp_scratch_shape(tier, 1, t_len, tokens.shape[0], v)))
     r, threads = viterbi_cuda.library_strip(tokens.shape[0])
     print(f"{tier} at the {minutes:g} min shape: {r}-state strips on {threads} threads; "
           f"backpointer scratch {bp_bytes} B per launch (2 bits a cell, [1, {t_len}, "
           f"{bp_bytes // t_len}] uint8)")
     print(f"time: long-form {minutes:g} min {minutes * 60 / wall:.1f}x realtime "
           f"({wall:.3f} s wall, first call), forward {fwd_ms:.3f} ms, DP ({tier}) "
-          f"{k_ms:.3f} ms (CUDA events, median of 5), plain DP {p_ms:.1f} ms, peak device "
+          f"{k_ms:.3f} ms (device time, median of 5), plain DP {p_ms:.1f} ms, peak device "
           f"memory {peak_gb:.2f} GB {card}")
     return counts, dict(tier=tier, ms=k_ms, plain_ms=p_ms, err=err,
                         shape=(1, t_len, v, tokens.shape[0], [t_len], [s_len]))
@@ -629,14 +696,14 @@ def run_longform_phoneme(device, cfg_ph, params_ph, vocab, minutes, card):
     if err:
         raise AssertionError(f"phoneme long-form: {tier} path differs from the plain version")
     k_ms, p_ms = interleaved_ms(kernel, plain, 5, 1)
-    bp_bytes = int(np.prod(viterbi_cuda.bp_scratch_shape(tier, 1, t_len, tokens.shape[0])))
+    bp_bytes = int(np.prod(viterbi_cuda.bp_scratch_shape(tier, 1, t_len, tokens.shape[0], v)))
     print(f"{tier} at the phoneme shape: {viterbi_cuda.library_strip(tokens.shape[0])[0]}-state "
           f"strips; backpointer scratch {bp_bytes} B per launch (2 bits a cell)")
     print(f"long-form, phoneme vocab: {minutes:g} min bf16 (T={t_len}, S={s_len}, "
           f"S_pad={tokens.shape[0]}, V={v}) -> tier {tier}, launches {counts}; "
           f"{len(out.words)} words in order, monotone; {tier} path == plain path")
     print(f"time: {tier} {k_ms:.4f} ms vs plain PyTorch {p_ms:.1f} ms at T={t_len} "
-          f"S_pad={tokens.shape[0]} V={v} (CUDA events, medians; plain, kernel, kernel, "
+          f"S_pad={tokens.shape[0]} V={v} (device time, medians; plain, kernel, kernel, "
           f"plain) {card}")
     return counts, dict(tier=tier, ms=k_ms, plain_ms=p_ms, err=err,
                         shape=(1, t_len, v, tokens.shape[0], [t_len], [s_len]))
@@ -664,44 +731,129 @@ def hour_scale(device, card):
         err = int((k4.long() - k1.long()).abs().max())
         if err:
             raise AssertionError(f"hour scale V={v}: K4 path differs from K1's")
-        k4_ms, k1_ms = interleaved_ms(
-            lambda: viterbi_cuda.viterbi_batch(lp, tok, *lens, tier="k4"),
-            lambda: viterbi_cuda.viterbi_batch(lp, tok, *lens, tier="k1"), 2, 2)
-        bp_bytes = int(np.prod(viterbi_cuda.bp_scratch_shape("k4", 1, HOUR_FRAMES, s_pad)))
+        ms = turns_ms({tier: (lambda tier=tier: viterbi_cuda.viterbi_batch(lp, tok, *lens,
+                                                                          tier=tier))
+                       for tier in ("k1", "k4")}, 2)
+        k4_ms, k1_ms = ms["k4"], ms["k1"]
+        bp_bytes = int(np.prod(viterbi_cuda.bp_scratch_shape("k4", 1, HOUR_FRAMES, s_pad, v)))
         print(f"hour scale: T={HOUR_FRAMES} V={v} S={s_len} S_pad={s_pad}: K4 path == K1 path; "
               f"K4 {k4_ms:.3f} ms ({viterbi_cuda.library_strip(s_pad)[0]}-state strips, "
-              f"backpointer scratch {bp_bytes} B), K1 {k1_ms:.3f} ms (CUDA events; K1, K4, K4, "
-              f"K1) {card}")
-        rows.append((HOUR_FRAMES, s_pad, v, k1_ms, k4_ms))
+              f"backpointer scratch {bp_bytes} B), K1 ({viterbi_cuda.k1_mode(HOUR_FRAMES, s_pad, v)}"
+              f" mode) {k1_ms:.3f} ms (device time; K1, K4, K4, K1) {card}")
+        rows.append((HOUR_FRAMES, s_pad, v, k1_ms, k4_ms, None,
+                     viterbi_cuda.k1_mode(HOUR_FRAMES, s_pad, v)))
         del lp
     return rows
 
 
 def tier_crossover(device, card, hour_rows):
-    """K1 vs K4 on one utterance at V=32 and T in {599, 1 024, 1 499,
-    6 000, 30 000} (and 180 000 from `hour_scale`), S growing with T as
-    transcripts do: the measurement behind K1_MAX_FRAMES. T = 20 000 at
-    S_pad = 16 384 runs K4's widest strips (512 threads of 32 states)."""
+    """K1 against gather + K2 and K4 on one utterance at V=32: the grid T in
+    {599, 1 024, 1 499, 2 400} x S_pad in {128, 256}, where K1 runs
+    resident (the rows for a routing rule past K1_MAX_FRAMES), then the rows
+    behind K1_MAX_FRAMES, S growing with T as transcripts do (T in
+    {1 024, 1 499, 6 000, 30 000, 20 000}; 180 000 from `hour_scale`).
+    T = 20 000 at S_pad = 16 384 runs K4's widest strips (512 threads of 32
+    states). Every kernel's path equals K1's."""
     import torch
 
     from wav2vec2_tpu_torch.ops import viterbi_cuda
 
     rng = np.random.default_rng(7)
     rows = []
-    for t, s_pad in ((599, 256), (1_024, 512), (1_499, 768), (6_000, 2_432), (30_000, 12_032),
-                     (20_000, 16_384)):
+    grid = [(t, s_pad) for t in (599, 1_024, 1_499, 2_400) for s_pad in (128, 256)]
+    for t, s_pad in grid + [(1_024, 512), (1_499, 768), (6_000, 2_432), (30_000, 12_032),
+                            (20_000, 16_384)]:
         lp = torch.from_numpy(random_log_probs(rng, 1, t, 32)).to(device)
         tok = torch.from_numpy(rng.integers(0, 32, size=(1, s_pad)).astype(np.int32)).to(device)
         lens = [torch.tensor([x], dtype=torch.int32, device=device) for x in (t, s_pad - 5)]
-        k1 = lambda: viterbi_cuda.viterbi_batch(lp, tok, *lens, tier="k1")  # noqa: E731
-        k4 = lambda: viterbi_cuda.viterbi_batch(lp, tok, *lens, tier="k4")  # noqa: E731
-        if not torch.equal(k1(), k4()):
-            raise AssertionError(f"crossover T={t}: K4 path differs from K1's")
-        k4_ms, k1_ms = interleaved_ms(k4, k1, 5, 5)
-        rows.append((t, s_pad, 32, k1_ms, k4_ms))
-    for t, s_pad, v, k1_ms, k4_ms in rows + hour_rows:
-        print(f"tier crossover: T={t} S_pad={s_pad} V={v}: K1 {k1_ms:.3f} ms, "
-              f"K4 {k4_ms:.3f} ms, K4/K1 {k4_ms / k1_ms:.3f} {card}")
+        fns = {tier: (lambda tier=tier: viterbi_cuda.viterbi_batch(lp, tok, *lens, tier=tier))
+               for tier in ("k1", "k2", "k4")}
+        try:
+            viterbi_cuda.check_fits("k2", t, s_pad, 32)
+        except ValueError:
+            del fns["k2"]
+        want = fns["k1"]()
+        for tier, fn in fns.items():
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"crossover T={t} S_pad={s_pad}: {tier} path differs "
+                                     "from K1's")
+        ms = turns_ms(fns, 5)
+        rows.append((t, s_pad, 32, ms["k1"], ms["k4"], ms.get("k2"),
+                     viterbi_cuda.k1_mode(t, s_pad, 32)))
+    for t, s_pad, v, k1_ms, k4_ms, k2_ms, mode in rows + hour_rows:
+        k2 = f"gather + K2 {k2_ms:.3f} ms, " if k2_ms is not None else "K2 does not fit, "
+        print(f"tier crossover: T={t} S_pad={s_pad} V={v}: K1 ({mode} mode) {k1_ms:.3f} ms, "
+              f"{k2}K4 {k4_ms:.3f} ms, K4/K1 {k4_ms / k1_ms:.3f} {card}")
+
+
+def time_k1(device, card, cases, k_ms, p_ms):
+    """K1 beside the earlier design and its bound: at the serving shape
+    (cases[0], B=128, T=499, S_pad=256) the resident mode against the
+    device mode (the kernel's first design, which the shape took before the
+    resident mode existed) on the same inputs, and the same at B=32 and B=1
+    (the first rows); the strip widths R of K1_STRIPS in the resident mode;
+    and the device mode at the large case (cases[-1]). `k_ms`, `p_ms`: the serving shape's kernel and plain
+    times. Every path is held to the plain version's."""
+    import torch
+
+    from wav2vec2_tpu_torch.ops import viterbi_cuda, viterbi_ref
+
+    _, lp, tok, t_lens, s_lens = cases[0]
+    b, t, v = lp.shape
+    s_pad = tok.shape[1]
+    r, threads = viterbi_cuda.library_strip(s_pad, "k1")
+    smem = viterbi_cuda.library_smem_bytes("k1", t, s_pad, v)
+    args = [torch.from_numpy(a).to(device) for a in (lp, tok, t_lens, s_lens)]
+    want = viterbi_ref.viterbi_batch(*args)
+    bound_ms, bound_by = dp_bound("k1", b, t, v, s_pad, t_lens, s_lens)
+    print(f"time: K1 resident ({r}-state strips on {threads} threads, {smem} B of shared "
+          f"memory a block) {k_ms:.4f} ms vs plain PyTorch {p_ms:.4f} ms at B={b} T={t} "
+          f"S_pad={s_pad}; bound {bound_ms:.5f} ms by {bound_by}, {bound_ms / k_ms:.2%} of it "
+          f"(device time, medians; plain, kernel, kernel, plain) {card}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        viterbi_cuda.viterbi_batch(*args)
+    host_us = (time.perf_counter() - t0) / 20 * 1e6
+    torch.cuda.synchronize()
+    print(f"time: K1's wrapper (viterbi_batch) costs the host {host_us:.1f} us a call to "
+          f"enqueue (host clock over 20 calls); one call timed alone between two events "
+          f"measures the larger of that and the kernel {card}")
+    for rows in (b, 32, 1):
+        sub = [a[:rows] for a in args]
+        fns = {mode: (lambda mode=mode: viterbi_cuda.k1_batch(*sub, mode=mode))
+               for mode in viterbi_cuda.K1_MODES}
+        for mode, fn in fns.items():
+            if not torch.equal(fn(), want[:rows]):
+                raise AssertionError(f"K1 {mode} mode at B={rows}: path differs from the plain "
+                                     "version's")
+        ms = turns_ms(fns, 50)
+        bound_ms, _ = dp_bound("k1", rows, t, v, s_pad, t_lens[:rows], s_lens[:rows])
+        print(f"time: K1 at B={rows} T={t} S_pad={s_pad}: resident mode {ms['resident']:.4f} ms, "
+              f"device mode (the first design) {ms['device']:.4f} ms, "
+              f"{ms['device'] / ms['resident']:.2f}x; bound {bound_ms:.5f} ms (device time, "
+              f"medians; resident, device, device, resident) {card}")
+    fns = {}
+    for strip in viterbi_cuda.K1_STRIPS:
+        fns[strip] = lambda strip=strip: viterbi_cuda.k1_batch(*args, mode="resident",
+                                                                 strip=strip)
+        if not torch.equal(fns[strip](), want):
+            raise AssertionError(f"K1 resident with {strip}-state strips: path differs from "
+                                 "the plain version's")
+    ms = turns_ms(fns, 50)
+    print(f"time: K1 resident strip sweep at B={b} T={t} S_pad={s_pad}: "
+          + ", ".join(f"R={strip} ({-(-s_pad // strip // 32)} warps) {t_ms:.4f} ms"
+                      for strip, t_ms in ms.items())
+          + f"; the launcher takes R={r} (device time, medians; R up, then down) {card}")
+    name, lp, tok, t_lens, s_lens = cases[-1]
+    b, t, v = lp.shape
+    s_pad = tok.shape[1]
+    mode = viterbi_cuda.k1_mode(t, s_pad, v)
+    args = [torch.from_numpy(a).to(device) for a in (lp, tok, t_lens, s_lens)]
+    large_ms = kernel_ms(lambda: viterbi_cuda.viterbi_batch(*args, tier="k1"), 10)
+    bound_ms, bound_by = dp_bound("k1", b, t, v, s_pad, t_lens, s_lens)
+    print(f"time: K1 ({mode} mode) {large_ms:.4f} ms at the {name} case; bound "
+          f"{bound_ms:.5f} ms by {bound_by} (device time, median of 10) {card}")
 
 
 def time_batch_path(aligner, vocab, batch, repeats):
@@ -860,7 +1012,9 @@ def time_flash(device, card, self_attn, b, nh, t, hd):
     version, one library call (scaled_dot_product_attention with the
     position term and mask as a precomputed bf16 bias), and the port's
     factorized attention core at the same shape (layer 0's biases and
-    linear_pos). Checks the kernel against the plain version there too."""
+    linear_pos), and the f32 FMA kernel at the same shape (the conformer's
+    f32 forward launches it). Checks both kernels against the plain
+    version there too."""
     import torch
     import torch.nn.functional as F
 
@@ -892,28 +1046,46 @@ def time_flash(device, card, self_attn, b, nh, t, hd):
                                                          scale=scale)
         lib_err = float((library().float() - want).abs().max()) / float(want.abs().max())
         library()
-        lib_ms = cuda_time_ms(library, 20)
+        lib_ms = kernel_ms(library, 20)
         del bias
         mask_bias = mask[:, None, None, :]
         core = lambda: _attention_core(self_attn, q, k, v, mask_bias, "relative",  # noqa: E731
                                        nh * hd)
         core()
-        core_ms = cuda_time_ms(core, 10)
+        core_ms = kernel_ms(core, 10)
+    # the f32 launches of the conformer's parity forward: the FMA kernel
+    q32, k32, v32, mask32, q_pos32, rel_r32 = flash_inputs(rng, b, nh, t, hd, "float32", True,
+                                                           True, device)
+    got32 = fa.flash_attention(q32, k32, v32, mask32, q_pos=q_pos32, rel_r=rel_r32, scale=scale)
+    want32 = flash_plain(q32, k32, v32, mask32, q_pos32, rel_r32, scale)
+    f32_rel = float((got32 - want32).abs().max()) / float(want32.abs().max())
+    if f32_rel > FLASH_REL_BOUND["float32"]:
+        raise AssertionError(f"K5 f32 at the slice's shape: relative error {f32_rel}")
+    del got32, want32
+    p32 = fa.pad_inputs(q32, k32, v32, mask32, q_pos32, rel_r32)
+    f32_ms = kernel_ms(lambda: fa.flash_attention(*p32[:4], q_pos=p32[4], rel_r=rel_r32,
+                                                  scale=scale), 10)
+    f32_bound, f32_by = flash_bound(b, nh, t_pad, hd, 4, PEAK_F32_OPS_PER_S)
+    del q32, k32, v32, p32
     bound_ms, bound_by = flash_bound(b, nh, t_pad, hd, 2, PEAK_BF16_OPS_PER_S)
     work = 6 * t_pad * t_pad * hd * b * nh
     print(f"time: K5 bf16 (tensor cores) {work / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s of the "
           f"6·T_pad²·hd work, {bound_ms / k_ms:.1%} of its bound ({bound_ms:.4f} ms by "
           f"{bound_by}); SDPA {lib_ms:.4f} ms, K5/SDPA {k_ms / lib_ms:.2f} {card}")
     print(f"time: K5 kernel {k_ms:.4f} ms vs plain PyTorch {p_ms:.3f} ms at B={b} NH={nh} "
-          f"T={t} (T_pad={t_pad}) hd={hd} bf16 rel mask (CUDA events, medians; plain, kernel, "
+          f"T={t} (T_pad={t_pad}) hd={hd} bf16 rel mask (device time, medians; plain, kernel, "
           f"kernel, plain); bound {bound_ms:.4f} ms by {bound_by}; relative error "
           f"{rel_err:.2e} {card}")
+    print(f"time: K5 f32 (FMA kernel, the parity forward's launches) {f32_ms:.4f} ms vs bf16 "
+          f"{k_ms:.4f} ms at B={b} NH={nh} T={t} (T_pad={t_pad}) hd={hd} rel mask; f32 bound "
+          f"{f32_bound:.4f} ms by {f32_by} (67 TFLOP/s f32); relative error {f32_rel:.2e}"
+          f" (device time, median of 10) {card}")
     print(f"time: library call scaled_dot_product_attention(q, k, v, attn_mask=bd*scale + "
           f"mask, scale) {lib_ms:.4f} ms at the same shape (bd precomputed, its construction "
           f"excluded; relative difference to the plain version {lib_err:.2e}); the port's "
-          f"factorized attention core {core_ms:.4f} ms (CUDA events, medians) {card}")
+          f"factorized attention core {core_ms:.4f} ms (device time, medians) {card}")
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=bound_by, err=err)
+                bound_by=bound_by, err=err, f32_ms=f32_ms)
 
 
 def kernel_time_split(fwd):
@@ -1086,11 +1258,14 @@ def main() -> int:
           f"{info['seconds']:.3f} s (nvcc {' '.join(cuda_build.NVCC_FLAGS)}); ptxas: {ptxas}")
 
     for shape in ((499, 256, 32), (3047, 128, 32), (37, 61, 397), (HOUR_FRAMES, 12_672, 392),
-                  (2400, 4100, 32)):
+                  (2400, 4100, 32), (512, 4096, 32), (1000, 16_388, 32), (5000, 3700, 8000),
+                  (1499, 768, 32), (601, 61, 29), (499, 256, 392), (2400, 256, 32), (64, 128, 8)):
         for tier in viterbi_cuda.TIERS:
             if viterbi_cuda.library_smem_bytes(tier, *shape) != viterbi_cuda.smem_bytes(tier, *shape):
                 raise AssertionError(f"{tier} at {shape}: the wrapper's shared-memory size "
                                      "differs from the kernel's")
+        if viterbi_cuda.library_k1_mode(*shape) != viterbi_cuda.k1_mode(*shape):
+            raise AssertionError(f"k1 at {shape}: the wrapper's mode differs from the kernel's")
     for hd in (16, 32, 64, 80, 128):
         for dtype in (torch.float32, torch.bfloat16):
             for rel in (False, True):
@@ -1101,7 +1276,10 @@ def main() -> int:
     # --- every kernel against its plain version ---------------------------
     rng = np.random.default_rng(0)
     cases = kernel_cases(rng)
-    max_err = {"k1": check_kernel(device, cases, "k1")}
+    k1_modes = {}
+    max_err = {"k1": check_kernel(device, cases, "k1", k1_modes)}
+    if k1_modes[cases[0][0]] != "resident" or k1_modes[cases[-1][0]] != "device":
+        raise AssertionError(f"K1 ran the serving case and the large case in {k1_modes}")
     for tier, tier_cases in blocked_cases(np.random.default_rng(8)).items():
         max_err[tier] = check_kernel(device, tier_cases, tier)
     max_err["k5"] = check_flash(device, flash_cases())
@@ -1114,7 +1292,7 @@ def main() -> int:
     params = params_from_jax(params_np, device=device)
 
     # --- the paths, each counted from 0 -----------------------------------
-    launches = {name: 0 for name in (*viterbi_cuda.TIERS, "k5")}
+    launches = {name: 0 for name in (*viterbi_cuda.TIERS, "k5", "k1_resident", "k1_device")}
 
     def add(counts, phase, want):
         for tier, n in counts.items():
@@ -1125,7 +1303,10 @@ def main() -> int:
     reset_launches()
     aligner, inputs = run_batch_entry(device, cfg, params, vocab,
                                       batch=32, seconds=10.0, n_check=16)
-    add(read_launches(), "the batch entry", "k1")
+    counts = read_launches()
+    add(counts, "the batch entry", "k1_resident")
+    if counts["k1_device"]:
+        raise AssertionError(f"the serving batch ran K1 in its device mode: {counts}")
 
     reset_launches()
     k2_inputs = run_long_bucket(aligner, cfg, vocab)
@@ -1137,7 +1318,7 @@ def main() -> int:
         single = run_single_entry(device, Path(tmp), durations=(4.0, 8.0, 12.0), n_words=14)
         counts = read_launches()
     add(counts, "the single-utterance entry", "k1")
-    if sum(counts.values()) != len(single):
+    if sum(counts[name] for name in (*viterbi_cuda.TIERS, "k5")) != len(single):
         raise AssertionError(f"the single-utterance entry launched {counts} for "
                              f"{len(single)} requests")
 
@@ -1162,8 +1343,7 @@ def main() -> int:
     args = [torch.from_numpy(a).to(device) for a in (lp, tok, t_lens, s_lens)]
     k_ms, p_ms = interleaved_ms(lambda: viterbi_cuda.viterbi_batch(*args, tier="k1"),
                                 lambda: viterbi_ref.viterbi_batch(*args), 50, 5)
-    print(f"time: K1 kernel {k_ms:.4f} ms vs plain PyTorch {p_ms:.4f} ms at B=128 T=499 "
-          f"S_pad=256 (CUDA events, medians; plain, kernel, kernel, plain) {card}")
+    time_k1(device, card, cases, k_ms, p_ms)
     kernels["k1"] = dict(ms=k_ms, plain_ms=p_ms,
                          shape=(128, 499, 32, S_PAD, t_lens, s_lens))
 
@@ -1174,12 +1354,13 @@ def main() -> int:
         lambda: viterbi_ref.viterbi_emissions_batch(emit2, tok2, tl2, sl2), 10, 1)
     b2, t2, s2 = emit2.shape
     print(f"time: K2 kernel {k_ms:.4f} ms vs plain PyTorch {p_ms:.1f} ms at the long bucket "
-          f"B={b2} T={t2} S_pad={s2} (CUDA events, medians; plain, kernel, kernel, plain) {card}")
-    with_gather, k4_ms = interleaved_ms(
-        lambda: viterbi_cuda.viterbi_batch(lp2, tok2, tl2, sl2, tier="k2"),
-        lambda: viterbi_cuda.viterbi_batch(lp2, tok2, tl2, sl2, tier="k4"), 10, 10)
+          f"B={b2} T={t2} S_pad={s2} (device time, medians; plain, kernel, kernel, plain) {card}")
+    ms = turns_ms({tier: (lambda tier=tier: viterbi_cuda.viterbi_batch(lp2, tok2, tl2, sl2,
+                                                                      tier=tier))
+                   for tier in ("k2", "k4")}, 10)
+    with_gather, k4_ms = ms["k2"], ms["k4"]
     print(f"time: at the same bucket, gather + K2 {with_gather:.4f} ms vs K4 {k4_ms:.4f} ms "
-          f"(CUDA events, medians) {card}")
+          f"(device time, medians) {card}")
     kernels["k2"] = dict(ms=k_ms, plain_ms=p_ms, shape=(b2, t2, lp2.shape[2], s2,
                                                         tl2.cpu().numpy(), sl2.cpu().numpy()))
     kernels["k3"], kernels["k4"] = k3_run, k4_run

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from chip_smoke import blocked_cases, check_flash, check_kernel, flash_cases, kernel_cases
-from wav2vec2_tpu_torch.ops import flash_attention, viterbi_cuda
+from wav2vec2_tpu_torch.ops import flash_attention, viterbi_cuda, viterbi_ref
 
 
 def _card():
@@ -27,14 +27,35 @@ def _card():
 def test_k1_kernel_matches_plain_on_the_card():
     """K1's paths are bit-identical to its plain PyTorch version (every row
     and frame) and to viterbi_numpy (a few rows) at the serving shape, a
-    ragged-t_len batch, the band and skip-rule edge cases and a long
-    utterance; one launch per case."""
+    ragged-t_len batch, the band and skip-rule edge cases, the ring's
+    4-byte copies and refills and a long utterance; one launch per case, in
+    the mode `k1_mode` gives: resident at the serving shape, device memory
+    at the large case."""
     device = _card()
     cases = kernel_cases(np.random.default_rng(0))
     before = viterbi_cuda.launches["k1"]
-    assert check_kernel(device, cases) == 0
+    modes = {}
+    assert check_kernel(device, cases, modes=modes) == 0
     torch.cuda.synchronize()
     assert viterbi_cuda.launches["k1"] == before + len(cases)
+    assert modes[cases[0][0]] == "resident"  # the serving shape
+    assert modes[cases[-1][0]] == "device"  # the large case
+    assert all(modes[name] == viterbi_cuda.k1_mode(lp.shape[1], tok.shape[1], lp.shape[2])
+               for name, lp, tok, _, _ in cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strip", viterbi_cuda.K1_STRIPS)
+def test_k1_resident_strips_match_plain_on_the_card(strip):
+    """Every strip width of K1's resident mode (forced with `k1_batch`)
+    gives the plain version's paths on the resident cases."""
+    device = _card()
+    for name, lp, tok, t_lens, s_lens in kernel_cases(np.random.default_rng(0)):
+        if viterbi_cuda.k1_mode(lp.shape[1], tok.shape[1], lp.shape[2]) != "resident":
+            continue
+        args = [torch.from_numpy(a).to(device) for a in (lp, tok, t_lens, s_lens)]
+        got = viterbi_cuda.k1_batch(*args, mode="resident", strip=strip)
+        assert torch.equal(got.cpu(), viterbi_ref.viterbi_batch(*[a.cpu() for a in args])), name
 
 
 @pytest.mark.cuda

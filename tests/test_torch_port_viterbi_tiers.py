@@ -94,25 +94,74 @@ def test_select_tier_routes_the_smoke_shapes(t_pad, s_pad, v, want):
 
 
 @pytest.mark.parametrize("tier,shape,want", [
-    ("k1", (499, 256, 32), 3072),
+    # K1 resident: 4 mbarriers, a ring of 4 x 16 rows of V f32, the 528 B
+    # halo and final scores, the int32 path row and the [T_pad, 64] planes
+    ("k1", (499, 256, 32), 32 + 4 * 2048 + 528 + 2000 + 499 * 64),
+    ("k1", (1499, 768, 32), 12 * 768),  # device mode: two f32 rows, int32 tokens
     ("k2", (1511, 128, 32), 64 * 128 + 528 + 1511 * 32),
     ("k3", (8999, 128, 392), 64 * 128 + 528 + 128),
     ("k4", (29999, 12032, 32), 64 * 32 + 528 + 128),
     ("k4", (37, 61, 397), 64 * 400 + 528 + 128),
 ])
 def test_shared_memory_sizes_are_pinned(tier, shape, want):
-    """K2–K4: the f32 window, halo and final scores, and K2's packed bp
-    or K3/K4's backtrace window; no DP row in shared memory."""
+    """K1's resident mode: its ring, halo, path row and 2-bit planes; its
+    device mode: two DP rows and the tokens. K2–K4: the f32 window, halo
+    and final scores, and K2's packed bp or K3/K4's backtrace window; no DP
+    row in shared memory."""
     assert viterbi_cuda.smem_bytes(tier, *shape) == want
 
 
 @pytest.mark.parametrize("tier,want", [
-    ("k1", (3, 101, 61)), ("k2", (0,)), ("k3", (3, 101, 16)), ("k4", (3, 101, 16)),
+    ("k1", (0,)), ("k2", (0,)), ("k3", (3, 101, 16)), ("k4", (3, 101, 16)),
 ])
 def test_backpointer_scratch_is_two_bits_a_cell(tier, want):
     """K3/K4 keep 2-bit backpointers in device memory: [B, T_pad, W/4]
-    uint8 with W = S_pad rounded up to 4."""
-    assert viterbi_cuda.bp_scratch_shape(tier, 3, 101, 61) == want
+    uint8 with W = S_pad rounded up to 4; K2 and K1's resident mode keep
+    theirs in shared memory."""
+    assert viterbi_cuda.bp_scratch_shape(tier, 3, 101, 61, 32) == want
+
+
+@pytest.mark.parametrize("shape,mode", [
+    ((499, 256, 32), "resident"),     # the serving shape
+    ((101, 61, 29), "resident"),      # V * 4 not a multiple of 16: 4-byte ring copies
+    ((2400, 256, 32), "resident"),    # past 512 frames the ring refills
+    ((512, 4096, 32), "device"),      # its planes (512 KB) do not fit
+    ((1000, 16_388, 32), "device"),   # past the resident strips
+    ((5000, 3700, 8000), "device"),   # 4.6 MB of planes
+    ((1499, 768, 32), "device"),      # the large case: 288 KB of planes
+])
+def test_k1_mode_is_a_shape_rule(shape, mode):
+    """K1 runs resident where its ring and 2-bit planes fit in shared
+    memory, else in device memory; the scratch and the shared-memory size
+    follow the mode."""
+    t_pad, s_pad, v = shape
+    assert viterbi_cuda.k1_mode(*shape) == mode
+    scratch = viterbi_cuda.bp_scratch_shape("k1", 2, t_pad, s_pad, v)
+    assert scratch == ((0,) if mode == "resident" else (2, t_pad, s_pad))
+    need = viterbi_cuda.smem_bytes("k1", *shape)
+    assert need <= viterbi_cuda.MAX_SMEM_BYTES
+    if mode == "device":
+        assert need == 12 * s_pad
+
+
+def test_k1_serving_shape_leaves_room_for_two_blocks_an_sm():
+    """At B=128, T=499, S_pad=256 a resident block takes under 113 KB, so
+    two fit an SM's 228 KB and B up to 264 runs in one wave."""
+    assert viterbi_cuda.smem_bytes("k1", 499, 256, 32) < 113 * 1024
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(mode="cache"), "mode"),
+    (dict(mode="device", strip=2), "strip"),
+    (dict(mode="resident", strip=3), "strip"),
+    (dict(mode="resident", strip=2), "CUDA"),
+])
+def test_k1_batch_checks_its_arguments(kwargs, match):
+    """`k1_batch` (a mode and strip width forced, for measuring) takes CUDA
+    tensors only and refuses modes and strips K1 does not have."""
+    args = _torch(*_batch(2, 2, 16, 4, 12))
+    with pytest.raises(ValueError, match=match):
+        viterbi_cuda.k1_batch(*args, **kwargs)
 
 
 @pytest.mark.parametrize("tier,shape", [
@@ -218,9 +267,9 @@ def test_plain_tier_matches_jax_single_bp_vmem_kernel(monkeypatch):
 @pytest.mark.parametrize("tier", viterbi_cuda.TIERS)
 def test_forced_tier_on_cpu_runs_the_plain_version_without_counting(tier):
     lp, tok, t_lens, s_lens = _batch(9, 3, 33, 6, 20)
-    before = dict(viterbi_cuda.launches)
+    before = dict(viterbi_cuda.launches), dict(viterbi_cuda.k1_launches)
     got = viterbi_cuda.viterbi_batch(*_torch(lp, tok, t_lens, s_lens), tier=tier).numpy()
-    assert viterbi_cuda.launches == before
+    assert (viterbi_cuda.launches, viterbi_cuda.k1_launches) == before
     _check_oracle(got, lp, tok, t_lens, s_lens)
 
 
