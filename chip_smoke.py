@@ -21,7 +21,19 @@ user calls, with random weights from a numpy seed:
   `BatchAligner.submit_padded_batch` on 32 × 10 s with the gates of
   `bench.py` (K5 once per layer and forward, K1), the f32 forward through
   K5 against the f32 factorized forward, and `ForcedAlignerBuilder` on a
-  4-block model directory (no K5, as in the JAX package).
+  4-block model directory (no K5, as in the JAX package);
+- the `alignment_report` CLI in process at the full width and depth of
+  wav2vec2-base, on a LibriSpeech-layout dataset of 64 FLAC utterances
+  written by the port's encoder (2–32 s, so every bucket of its 1 s pow2
+  grid up to 32 s fills): textgrid at bf16 and f32 (`align_stream`: K1 at
+  the short buckets, K2 and K4 at the long ones), `--no-batch`, json,
+  perf, srt, and `--units phoneme` with a 392-wide head (K1 resident),
+  with gates on the stream's order and words, native vs Python grouping
+  on every drained batch, batch vs single, the perf run's device memory,
+  and each tier it launched against its plain version.
+
+The host grouping runs the native engine throughout
+(`WAV2VEC2_NATIVE_GROUPING=require`): a silent fall-back to Python fails.
 
 K1 runs in its resident mode at the serving shape (checked on the batch
 entry through its per-mode launch counts) and in its device mode on the
@@ -42,6 +54,7 @@ JSON object naming the device.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -709,6 +722,476 @@ def run_longform_phoneme(device, cfg_ph, params_ph, vocab, minutes, card):
                         shape=(1, t_len, v, tokens.shape[0], [t_len], [s_len]))
 
 
+# --- the alignment_report CLI (its own phase) -------------------------------
+
+CLI_CASES = 64
+CLI_BUCKETS_S = (2, 4, 8, 16, 32)  # the CLI's pow2 grid of 1 s buckets
+CLI_WORDS_PER_S = 2.5
+CLI_PHONEME_CASES = 8
+
+
+def phoneme_vocab() -> dict[str, int]:
+    """A 392-entry phoneme-CTC vocab: the special tokens, "|", and IPA-style
+    symbols, most of them several code points ("tʃ", "ɛ̃", "aː", "kʰ")."""
+    vocab = {"<pad>": 0, "<s>": 1, "</s>": 2, "<unk>": 3, "|": 4}
+    bases = [*"abdefhijklmnopqrstuvwxzæçðŋøœɐɑɒɔəɛɜɡɣɪɲɹʁʃʊʌʒθ", "tʃ", "dʒ", "ts"]
+    for mark in ("", "ː", "̃", "ʰ", "ʲ", "ʷ", "ˤ", "̥", "̪"):
+        for base in bases:
+            if len(vocab) == PHONEME_VOCAB:
+                return vocab
+            vocab[base + mark] = len(vocab)
+    raise AssertionError("phoneme vocab too small")
+
+
+def write_librispeech(root: Path, cases, rng) -> Path:
+    """`cases` [(seconds, transcript)] as white-noise FLAC files (the port's
+    encoder) under LibriSpeech/test-clean/<speaker>/<chapter>/ with one
+    <speaker>-<chapter>.trans.txt per chapter, 16 utterances a speaker."""
+    from wav2vec2_tpu_torch.data.flac_encoder import write_flac
+
+    chapters: dict[Path, list[str]] = {}
+    for i, (sec, text) in enumerate(cases):
+        spk, chapter = 1000 + i // 16, 10 + i % 2
+        base = root / "LibriSpeech" / "test-clean" / str(spk) / str(chapter)
+        base.mkdir(parents=True, exist_ok=True)
+        uid = f"{spk}-{chapter}-{i:04d}"
+        x = (rng.normal(size=int(sec * SAMPLE_RATE)) * 4000).clip(-32768, 32767)
+        write_flac(base / f"{uid}.flac", x.astype(np.int64), SAMPLE_RATE)
+        chapters.setdefault(base, []).append(f"{uid} {text}")
+    for base, lines in chapters.items():
+        spk, chapter = base.parent.name, base.name
+        (base / f"{spk}-{chapter}.trans.txt").write_text("\n".join(lines) + "\n",
+                                                         encoding="utf-8")
+    return root
+
+
+def stream_order(keys, max_batch, max_in_flight, max_pending):
+    """The order in which the JAX package's `align_stream` yields its inputs,
+    from their bucket keys alone (None for a degenerate input): full buckets
+    submit, the fullest flushes at `max_pending`, the rest submit in sorted
+    key order, and a batch drains once more than `max_in_flight` wait."""
+    order, pending, in_flight = [], {}, []
+
+    def launch(entries):
+        in_flight.append(entries)
+        if len(in_flight) > max_in_flight:
+            order.extend(in_flight.pop(0))
+
+    for idx, key in enumerate(keys):
+        if key is None:
+            order.append(idx)
+            continue
+        entries = pending.setdefault(key, [])
+        entries.append(idx)
+        if len(entries) >= max_batch:
+            del pending[key]
+            launch(entries)
+        elif sum(len(v) for v in pending.values()) >= max_pending:
+            launch(pending.pop(max(pending, key=lambda k: len(pending[k]))))
+    for key in sorted(pending):
+        launch(pending[key])
+    while in_flight:
+        order.extend(in_flight.pop(0))
+    return order
+
+
+class CliProbe:
+    """Records what the CLI's batch engine did, without changing it: per
+    submitted batch its shape, the Viterbi launches it made (by tier and K1
+    mode) and its device tensors (log-probs, tokens, lengths, paths); per
+    drained batch of word units, the host grouping by the native engine and
+    again by the Python path on the same evidence (their words must be
+    bit-identical, or the run fails), with both times; per `align_stream`
+    call its inputs and yields."""
+
+    def __init__(self):
+        self.run = None
+        self.batches: list[dict] = []
+        self.groups: list[dict] = []
+        self.streams: list[dict] = []
+
+    def __enter__(self):
+        from wav2vec2_tpu_torch.parallel.batching import BatchAligner
+
+        self._orig = {n: getattr(BatchAligner, n)
+                      for n in ("submit_padded_batch", "group_batch", "align_stream")}
+        for name, wrapper in (("submit_padded_batch", self._submit),
+                              ("group_batch", self._group), ("align_stream", self._stream)):
+            # a plain function, so that the aligner binds as its first argument
+            setattr(BatchAligner, name,
+                    lambda aligner, *a, _w=wrapper, **k: _w(aligner, *a, **k))
+        return self
+
+    def __exit__(self, *exc):
+        from wav2vec2_tpu_torch.parallel.batching import BatchAligner
+
+        for name, fn in self._orig.items():
+            setattr(BatchAligner, name, fn)
+
+    def _submit(self, aligner, audio, audio_lens, tokens, s_lens, return_log_probs=False):
+        from wav2vec2_tpu_torch.ops import viterbi_cuda
+
+        def counts():
+            return {**viterbi_cuda.launches,
+                    **{f"k1_{m}": n for m, n in viterbi_cuda.k1_launches.items()}}
+
+        before = counts()
+        handles = self._orig["submit_padded_batch"](aligner, audio, audio_lens, tokens,
+                                                    s_lens, return_log_probs=True)
+        after = counts()
+        self.batches.append(dict(
+            run=self.run, n_pad=int(audio.shape[1]), b=int(audio.shape[0]),
+            launched={k: after[k] - before[k] for k in after if after[k] != before[k]},
+            log_probs=handles[-1], tokens=np.asarray(tokens), s_lens=np.asarray(s_lens),
+            paths=handles[0], t_lens=handles[1]))
+        return handles
+
+    def _group(self, aligner, seqs, handles):
+        import dataclasses
+
+        from wav2vec2_tpu_torch.align import grouping
+        from wav2vec2_tpu_torch.parallel.batching import _host_arrays
+
+        group = self._orig["group_batch"]
+        _host_arrays(handles)  # wait for the host copies outside the timed calls
+        if aligner.units != "word":
+            return group(aligner, seqs, handles)
+        calls = dict(grouping.engine_calls)
+        # the grouping calls alone, inside group_batch (an instance
+        # attribute shadows the method for these two calls)
+        inner, spent = aligner._group, []
+
+        def timed(*args):
+            t = time.perf_counter()
+            res = inner(*args)
+            spent.append(time.perf_counter() - t)
+            return res
+
+        aligner._group = timed
+        try:
+            t0 = time.perf_counter()
+            out = group(aligner, seqs, handles)
+            t1 = time.perf_counter()
+            native_inner = sum(spent)
+            engines = {k: grouping.engine_calls[k] - calls[k] for k in calls}
+            grouping.NATIVE_GROUPING = "off"
+            try:
+                ref = group(aligner, seqs, handles)
+            finally:
+                grouping.NATIVE_GROUPING = "require"
+            t2 = time.perf_counter()
+        finally:
+            del aligner._group
+        if [dataclasses.asdict(o) for o in out] != [dataclasses.asdict(o) for o in ref]:
+            raise AssertionError(f"gate (b), {self.run}: the native engine's words differ "
+                                 "from the Python path's on the same evidence")
+        self.groups.append(dict(run=self.run, n=len(seqs), engines=engines,
+                                native_ms=(t1 - t0) * 1e3, python_ms=(t2 - t1) * 1e3,
+                                native_calls_ms=native_inner * 1e3,
+                                python_calls_ms=(sum(spent) - native_inner) * 1e3))
+        return out
+
+    def _stream(self, aligner, items, **kw):
+        rec = dict(run=self.run, aligner=aligner, items=[], yields=[], kw=kw)
+        self.streams.append(rec)
+
+        def tee():
+            for item in items:
+                rec["items"].append(item)
+                yield item
+
+        for idx, out in self._orig["align_stream"](aligner, tee(), **kw):
+            rec["yields"].append((idx, out))
+            yield idx, out
+
+
+def cli_run(probe, label, argv):
+    """One in-process `alignment_report.run`; returns its wall seconds."""
+    from wav2vec2_tpu_torch.cli.alignment_report import run
+
+    probe.run = label
+    t0 = time.perf_counter()
+    rc = run(argv)
+    if rc != 0:
+        raise AssertionError(f"alignment_report ({label}) exited {rc}")
+    return time.perf_counter() - t0
+
+
+def textgrid_words(path):
+    from wav2vec2_tpu_torch.data.textgrid import parse_textgrid_file
+
+    tier = parse_textgrid_file(path).tier("words")
+    return [(iv.text, round(iv.xmin * 1000), round(iv.xmax * 1000))
+            for iv in tier.intervals if iv.text.strip()]
+
+
+def check_stream_gate(probe, stride_ms):
+    """Gate (a): run 2's `align_stream` words equal `align_utterances` on the
+    same inputs at f32, and its yields come in the JAX rules' order."""
+    from wav2vec2_tpu_torch.parallel.batching import _pad_len
+
+    rec = next(s for s in probe.streams if s["run"] == "run 2")
+    aligner, kw = rec["aligner"], rec["kw"]
+    audios = [np.asarray(a) for a, _ in rec["items"]]
+    texts = [t for _, t in rec["items"]]
+    keys = []
+    for a, t in zip(audios, texts):
+        seq = aligner._tokenize(t)
+        degenerate = len(a) == 0 or not t.strip() or not seq.normalized_words
+        keys.append(None if degenerate else (_pad_len(len(a), kw["audio_multiple"], "pow2"),
+                                             _pad_len(len(seq.tokens), 128, "pow2")))
+    want_order = stream_order(keys, kw["max_batch"], kw.get("max_in_flight", 2),
+                              kw["max_pending"])
+    got_order = [i for i, _ in rec["yields"]]
+    if got_order != want_order:
+        raise AssertionError(f"gate (a): align_stream yielded {got_order}, the JAX rules "
+                             f"give {want_order}")
+    full = aligner.align_utterances(audios, texts, audio_multiple=kw["audio_multiple"],
+                                    max_batch=kw["max_batch"])
+    streamed = dict(rec["yields"])
+    for i, out in enumerate(full):
+        got = [(w.word, w.start_ms, w.end_ms) for w in streamed[i].words]
+        if got != [(w.word, w.start_ms, w.end_ms) for w in out.words] or not got:
+            raise AssertionError(f"gate (a): utterance {i}: align_stream words differ from "
+                                 "align_utterances")
+    return len(full), len(set(keys))
+
+
+def check_tiers_gate(probe, runs, device):
+    """Gate (e): per tier that a run launched, the first batch that ran it:
+    the drained paths equal the plain version's on that batch's log-probs
+    (all rows, all frames)."""
+    import torch
+
+    from wav2vec2_tpu_torch.ops import viterbi_cuda
+
+    checked = {}
+    for batch in probe.batches:
+        if batch["run"] not in runs:
+            continue
+        for tier in viterbi_cuda.TIERS:
+            if batch["launched"].get(tier) and tier not in checked:
+                tok = torch.from_numpy(batch["tokens"]).to(device)
+                s_lens = torch.from_numpy(batch["s_lens"]).to(device)
+                plain = plain_version(tier, batch["log_probs"], tok, batch["t_lens"], s_lens)
+                err = int((batch["paths"].long() - plain.long()).abs().max())
+                if err:
+                    raise AssertionError(f"gate (e): {tier} paths differ from the plain "
+                                         f"version on the {batch['n_pad'] / SAMPLE_RATE:g} s "
+                                         "bucket")
+                checked[tier] = (batch["n_pad"] // SAMPLE_RATE, batch["b"],
+                                 tuple(batch["log_probs"].shape[1:]), tok.shape[1])
+    return checked
+
+
+def check_phoneme_gate(probe, vocab):
+    """Gate (f): run 7's K1 launches all resident, and every row's drained
+    path equals `viterbi_numpy` on its log-probs."""
+    from wav2vec2_tpu_torch.ops.viterbi_ref import viterbi_numpy
+
+    batches = [b for b in probe.batches if b["run"] == "run 7"]
+    launched = {}
+    rows = 0
+    for batch in batches:
+        for k, n in batch["launched"].items():
+            launched[k] = launched.get(k, 0) + n
+        lp = batch["log_probs"].float().cpu().numpy()
+        paths, t_lens = batch["paths"].cpu().numpy(), batch["t_lens"].cpu().numpy()
+        if lp.shape[2] != len(vocab):
+            raise AssertionError(f"gate (f): log-probs of width {lp.shape[2]}")
+        for j in range(batch["b"]):
+            t_i, s_i = int(t_lens[j]), int(batch["s_lens"][j])
+            ref = [s for s, _ in viterbi_numpy(lp[j, :t_i], batch["tokens"][j, :s_i])]
+            if list(paths[j, :t_i]) != ref:
+                raise AssertionError(f"gate (f): phoneme row {j} differs from viterbi_numpy")
+            rows += 1
+    if not launched.get("k1") or launched.get("k1_resident") != launched["k1"]:
+        raise AssertionError(f"gate (f): the phoneme run's K1 launches were not all "
+                             f"resident: {launched}")
+    return launched, rows
+
+
+def run_cli(device, card, params_np, cfg, vocab, phoneme_head):
+    """The `alignment_report` CLI, in process, at the full width and depth
+    of wav2vec2-base with random weights, on a LibriSpeech-layout dataset
+    of 64 white-noise FLAC utterances that fill its 2, 4, 8, 16 and 32 s
+    buckets (about 2.5 words a second), with the native grouping engine
+    set to "require". Runs: (1) textgrid, batch, bf16; (2) textgrid,
+    batch, f32; (3) textgrid, --no-batch, f32; (4) json over run 1's
+    TextGrids; (5) perf on 4 cases; (6) srt; (7) --units phoneme on 8 cases
+    with a 392-wide head and a phoneme vocab.json. Gates (a)–(f) raise;
+    (g), compare_textgrids between runs 1 and 2, is printed. Returns the
+    Viterbi launches of the runs (counted from 0 before each run)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from wav2vec2_tpu_torch.cli import compare_textgrids
+    from wav2vec2_tpu_torch.config import Wav2Vec2ModelConfig
+    from wav2vec2_tpu_torch.data.audio import read_audio_mono
+
+    rng = np.random.default_rng(11)
+    cases = []
+    for i in range(CLI_CASES):
+        hi = CLI_BUCKETS_S[i % len(CLI_BUCKETS_S)]
+        sec = float(hi * rng.uniform(0.55, 0.98))
+        words = rng.choice(WORDS, size=max(1, round(CLI_WORDS_PER_S * sec)))
+        cases.append((sec, " ".join(words)))
+    ph_vocab = phoneme_vocab()
+    symbols = [s for s in ph_vocab if ph_vocab[s] > 4]
+    ph_cases = []
+    for i in range(CLI_PHONEME_CASES):
+        sec = float(rng.uniform(2.0, 7.5))
+        n_words = max(1, round(CLI_WORDS_PER_S * sec))
+        ph_cases.append((sec, " | ".join(" ".join(rng.choice(symbols, size=int(rng.integers(2, 6))))
+                                         for _ in range(n_words))))
+    stride_ms = cfg.frame_stride_ms(SAMPLE_RATE)
+    totals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        (tmp / "model").mkdir()
+        (tmp / "model_ph").mkdir()
+        write_model_dir(tmp / "model", BASE_CONFIG, params_np, cfg, vocab)
+        ph_dict = {**BASE_CONFIG, "vocab_size": PHONEME_VOCAB}
+        write_model_dir(tmp / "model_ph", ph_dict, {**params_np, "lm_head": phoneme_head},
+                        Wav2Vec2ModelConfig.from_dict(ph_dict), ph_vocab)
+        data = write_librispeech(tmp / "data", cases, rng)
+        ph_data = write_librispeech(tmp / "data_ph", ph_cases, rng)
+        flacs = sorted(data.rglob("*.flac"))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        audio_s = sum(len(read_audio_mono(p)[0]) for p in flacs) / SAMPLE_RATE
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        print(f"cli: dataset {len(flacs)} FLAC files, {audio_s:.1f} s of audio "
+              f"({', '.join(f'{sum(1 for s, _ in cases if s <= b and s > b / 2)} in the {b} s bucket' for b in CLI_BUCKETS_S)}), "
+              f"and two model directories written in {write_s:.1f} s")
+
+        common = ["--model-dir", str(tmp / "model"), "--dataset-root", str(data),
+                  "--device", str(device)]
+        walls = {}
+        probe = CliProbe()
+        runs = (
+            ("run 1", ["--output-format", "textgrid", "--compute-dtype", "bfloat16"]),
+            ("run 2", ["--output-format", "textgrid", "--compute-dtype", "float32",
+                       "--textgrid-suffix", "_f32"]),
+            ("run 3", ["--output-format", "textgrid", "--compute-dtype", "float32",
+                       "--textgrid-suffix", "_single", "--no-batch"]),
+            ("run 4", ["--output-format", "json", "--compute-dtype", "bfloat16",
+                       "--out", str(tmp / "report.json")]),
+            ("run 5", ["--output-format", "perf", "--compute-dtype", "bfloat16",
+                       "--limit", "4", "--perf-warmup", "2", "--perf-repeats", "5",
+                       "--perf-out", str(tmp / "perf.json")]),
+            ("run 6", ["--output-format", "srt", "--compute-dtype", "bfloat16"]),
+            ("run 7", ["--model-dir", str(tmp / "model_ph"), "--dataset-root",
+                       str(ph_data), "--units", "phoneme", "--output-format",
+                       "textgrid", "--compute-dtype", "bfloat16"]))
+        with probe:
+            for label, extra in runs:
+                reset_launches()
+                walls[label] = cli_run(probe, label, common + extra)
+                counts = read_launches()
+                totals[label] = counts
+                print(f"cli {label}: {' '.join(extra[:2] + extra[-2:])}: wall "
+                      f"{walls[label]:.3f} s; launches "
+                      f"{ {k: n for k, n in counts.items() if n} } {card}")
+
+        # gate (a): align_stream == align_utterances, in the JAX order
+        n_stream, n_keys = check_stream_gate(probe, stride_ms)
+        # gate (b) ran inside every drain; summarise it
+        groups = [g for g in probe.groups if g["run"] in ("run 1", "run 2")]
+        if not groups or any(g["engines"] != {"native": g["n"], "python": 0} for g in groups):
+            raise AssertionError(f"gate (b): a batch was not grouped by the native engine: "
+                                 f"{[g['engines'] for g in groups]}")
+        # gate (c): batch vs single at f32
+        total = exact = within = 0
+        for tg in sorted(data.rglob("*_f32.TextGrid")):
+            a = textgrid_words(tg)
+            b = textgrid_words(tg.with_name(tg.name.replace("_f32", "_single")))
+            if [w for w, *_ in a] != [w for w, *_ in b] or not a:
+                raise AssertionError(f"gate (c): {tg.name}: batch and single words differ")
+            for (_, s1, e1), (_, s2, e2) in zip(a, b):
+                d = max(abs(s1 - s2), abs(e1 - e2))
+                total += 1
+                exact += d == 0
+                within += d <= stride_ms
+        n_tg = len(list(data.rglob("*_single.TextGrid")))
+        if n_tg != CLI_CASES or within != total or exact < 0.99 * total:
+            raise AssertionError(f"gate (c): {n_tg} single TextGrids; {exact}/{total} exact, "
+                                 f"{within}/{total} within one frame")
+        # run 4's report scored against run 1's TextGrids
+        report = json.loads((tmp / "report.json").read_text())
+        if (report["meta"]["case_count"] != CLI_CASES
+                or report["meta"]["device"] != torch.device(device).type):
+            raise AssertionError(f"json report: {report['meta']}")
+        abs_err = report["aggregates"]["global"]["abs_err_ms_p90"]
+        # gate (d): device memory readings of the perf run
+        perf = json.loads((tmp / "perf.json").read_text())
+        mem = [stage for r in perf["records"] for stage in r["memory"].values()]
+        if len(perf["records"]) != 4 or not mem or any(
+                s.get("gpu_used") is None or s.get("gpu_total") is None for s in mem):
+            raise AssertionError(f"gate (d): perf memory readings {mem}")
+        if len(list(data.rglob("*.srt"))) != CLI_CASES:
+            raise AssertionError("run 6 wrote fewer SRT files than cases")
+        # gate (e): each tier of runs 1-2 against its plain version
+        checked = check_tiers_gate(probe, ("run 1", "run 2"), device)
+        if not (totals["run 1"]["k1"] + totals["run 2"]["k1"]
+                and totals["run 1"]["k2"] + totals["run 2"]["k2"]):
+            raise AssertionError(f"gate (e): the batch runs launched "
+                                 f"{totals['run 1']} and {totals['run 2']}")
+        # gate (f): phoneme units, K1 resident, paths == viterbi_numpy
+        ph_launched, ph_rows = check_phoneme_gate(probe, ph_vocab)
+        ph_units = sum(len(textgrid_words(p)) for p in ph_data.rglob("*.TextGrid"))
+        # (g): compare_textgrids, run 1 (bf16) against run 2 (f32), reported
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = compare_textgrids.run([str(data), "--suffix", "_f32", "--extended"])
+        medians = json.loads(out.getvalue())
+
+    by_bucket = {}
+    for b in probe.batches:
+        if b["run"] in ("run 1", "run 2"):
+            key = f"{b['n_pad'] // SAMPLE_RATE} s/S_pad {b['tokens'].shape[1]}"
+            for tier, n in b["launched"].items():
+                by_bucket.setdefault(key, {}).setdefault(tier, 0)
+                by_bucket[key][tier] += n
+    nat = [g["native_ms"] for g in groups]
+    py = [g["python_ms"] for g in groups]
+    n_utts = sum(g["n"] for g in groups)
+    print(f"cli gates passed: (a) run 2's align_stream == align_utterances ({n_stream} "
+          f"utterances, {n_keys} buckets) and yields in the JAX rules' order; (b) native == "
+          f"Python grouping on all {len(groups)} batches of runs 1-2 ({n_utts} utterances); "
+          f"(c) batch vs --no-batch at f32: {exact}/{total} exact, {within}/{total} within "
+          f"one frame, same words; (d) perf memory readings non-null ({len(mem)} stages); "
+          f"(e) tiers vs plain version on one bucket each: {checked}; (f) phoneme run: "
+          f"{ph_rows} rows == viterbi_numpy, launches {ph_launched}, {ph_units} units; "
+          f"json report abs_err_ms_p90 {abs_err} vs run 1")
+    print(f"cli (g) compare_textgrids run 1 (bf16) vs run 2 (f32), exit {rc}: {medians}")
+    print(f"time: cli run 1 (textgrid, batch, bf16) wall {walls['run 1']:.3f} s for "
+          f"{audio_s:.1f} s of audio = {audio_s / walls['run 1']:.1f}x realtime (model load, "
+          f"decode, align, write); run 2 (f32) {walls['run 2']:.3f} s = "
+          f"{audio_s / walls['run 2']:.1f}x; run 3 (--no-batch, f32) {walls['run 3']:.3f} s "
+          f"{card}")
+    print(f"time: FLAC decode {decode_ms:.1f} ms for {len(flacs)} files, {audio_s:.1f} s of "
+          f"audio, one thread ({decode_ms / audio_s:.3f} ms per audio second) {card}")
+    nat_calls = sum(g["native_calls_ms"] for g in groups)
+    py_calls = sum(g["python_calls_ms"] for g in groups)
+    print(f"time: host grouping per batch of runs 1-2 ({len(groups)} batches, "
+          f"{n_utts / len(groups):.1f} utterances a batch): group_batch with the native engine "
+          f"{statistics.mean(nat):.2f} ms (median {statistics.median(nat):.2f}), with the Python "
+          f"path {statistics.mean(py):.2f} ms (median {statistics.median(py):.2f}) on the same "
+          f"batches, {sum(py) / sum(nat):.1f}x; the grouping calls alone "
+          f"{nat_calls / n_utts:.3f} vs {py_calls / n_utts:.3f} ms an utterance, "
+          f"{py_calls / nat_calls:.1f}x {card}")
+    print(f"cli launches by bucket (runs 1-2): {by_bucket}")
+    out = {}
+    for counts in totals.values():
+        for k, n in counts.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
 def hour_scale(device, card):
     """K4 vs K1 at T=180 000 on random log-probs (V=32, S=11 127 and V=392,
     S=12 599): bit-identical paths (K1 is held to the plain version above;
@@ -1234,10 +1717,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke test runs only on a GPU",
               file=sys.stderr)
         return 2
+    # every host grouping of the smoke runs the native engine, or fails
+    os.environ["WAV2VEC2_NATIVE_GROUPING"] = "require"
+    from wav2vec2_tpu_torch.align import grouping
     from wav2vec2_tpu_torch.config import Wav2Vec2ModelConfig
     from wav2vec2_tpu_torch.models.params import init_params, params_from_jax
     from wav2vec2_tpu_torch.ops import cuda_build, viterbi_cuda, viterbi_ref
     from wav2vec2_tpu_torch.ops import flash_attention as fa
+    from wav2vec2_tpu_torch.utils import native_build
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
@@ -1256,6 +1743,11 @@ def main() -> int:
                        if "registers" in l or "smem" in l or "spill" in l)
     print(f"build: {', '.join(s.name for s in cuda_build.SOURCES)} -> {info['library']} in "
           f"{info['seconds']:.3f} s (nvcc {' '.join(cuda_build.NVCC_FLAGS)}); ptxas: {ptxas}")
+    for lib in native_build.SOURCES:
+        t0 = time.perf_counter()
+        path = native_build.build(lib, force=True)
+        print(f"build: {native_build.SOURCES[lib].name} -> {path} in "
+              f"{time.perf_counter() - t0:.3f} s (g++ {' '.join(native_build.CXX_FLAGS)})")
 
     for shape in ((499, 256, 32), (3047, 128, 32), (37, 61, 397), (HOUR_FRAMES, 12_672, 392),
                   (2400, 4100, 32), (512, 4096, 32), (1000, 16_388, 32), (5000, 3700, 8000),
@@ -1328,14 +1820,23 @@ def main() -> int:
 
     cfg_ph = Wav2Vec2ModelConfig.from_dict({**BASE_CONFIG, "vocab_size": PHONEME_VOCAB})
     head = np.random.default_rng(9).standard_normal((768, PHONEME_VOCAB), dtype=np.float32)
-    params_ph = params_from_jax({**params_np, "lm_head": {
-        "kernel": head * np.float32((2.0 / (768 + PHONEME_VOCAB)) ** 0.5),
-        "bias": np.zeros(PHONEME_VOCAB, np.float32)}}, device=device)
+    phoneme_head = {"kernel": head * np.float32((2.0 / (768 + PHONEME_VOCAB)) ** 0.5),
+                    "bias": np.zeros(PHONEME_VOCAB, np.float32)}
+    params_ph = params_from_jax({**params_np, "lm_head": phoneme_head}, device=device)
     counts, k3_run = run_longform_phoneme(device, cfg_ph, params_ph, vocab, minutes=3.0,
                                           card=card)
     add(counts, "the phoneme-vocab long-form entry", "k3")
     max_err["k3"] = max(max_err["k3"], k3_run["err"])
     del params_ph
+
+    if grouping.NATIVE_GROUPING != "require" or not grouping.engine_calls["native"] \
+            or grouping.engine_calls["python"]:
+        raise AssertionError(f"host grouping so far: {grouping.engine_calls}, "
+                             f"NATIVE_GROUPING={grouping.NATIVE_GROUPING}")
+    counts = run_cli(device, card, params_np, cfg, vocab, phoneme_head)
+    add(counts, "the CLI", "k1")
+    if counts["k2"] < 1:
+        raise AssertionError(f"the CLI never launched k2: {counts}")
 
     # --- times, each beside the card's name and power limit --------------
     kernels = {}

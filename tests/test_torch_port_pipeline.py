@@ -11,9 +11,10 @@
 - The port's safetensors reader/writer round-trip against the
   `safetensors` package.
 - The port imports and runs its CPU slice (batch, single-utterance and
-  long-form entries, and a tiny conformer through the batch entry with the
-  attention kernel switch on and off) with jax, safetensors and
-  transformers made unimportable.
+  long-form entries, a tiny conformer through the batch entry with the
+  attention kernel switch on and off, and the `alignment_report` CLI in
+  textgrid, json and perf modes on a FLAC dataset) with jax, safetensors
+  and transformers made unimportable.
 """
 
 import json
@@ -307,6 +308,25 @@ for flash in (True, False):
         [rng.normal(size=3000).astype(np.float32)], ["jumps over the dog"],
         audio_multiple=1000)
     assert [x.word for x in out[0].words] == ["JUMPS", "OVER", "THE", "DOG"], out
+import json, pathlib, tempfile
+from wav2vec2_tpu_torch.cli.alignment_report import run
+from wav2vec2_tpu_torch.data.flac_encoder import write_flac
+with tempfile.TemporaryDirectory() as tmp:
+    base = pathlib.Path(tmp) / "LibriSpeech" / "test-clean" / "1" / "2"
+    base.mkdir(parents=True)
+    for i, n in enumerate((12000, 30000)):
+        write_flac(base / f"1-2-{{i:04d}}.flac",
+                   np.clip(np.cumsum(rng.integers(-80, 80, size=n)), -30000, 30000), 16000)
+    (base / "1-2.trans.txt").write_text("1-2-0000 THE QUICK FOX\\n1-2-0001 OVER THE LAZY DOG")
+    common = ["--model-dir", {str(model_dir)!r}, "--dataset-root", tmp, "--device", "cpu",
+              "--compute-dtype", "float32"]
+    assert run(common + ["--output-format", "textgrid"]) == 0
+    assert len(list(base.glob("*.TextGrid"))) == 2
+    assert run(common + ["--output-format", "json", "--out", tmp + "/r.json"]) == 0
+    report = json.loads(pathlib.Path(tmp, "r.json").read_text())
+    assert report["meta"]["case_count"] == 2 and report["meta"]["device"] == "cpu"
+    assert run(common + ["--output-format", "perf", "--perf-out", tmp + "/p.jsonl",
+                         "--perf-warmup", "1", "--perf-repeats", "1"]) == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("wav2vec2_tpu", "jax")
              and sys.modules[m] is not None)
 assert not bad, bad

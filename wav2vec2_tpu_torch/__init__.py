@@ -14,7 +14,11 @@ kernel of the JAX package written in CUDA: the banded CTC Viterbi K1
 (`csrc/viterbi.cu`), its blocked tiers K2, K3, K4
 (`csrc/viterbi_blocked.cu`), and the fused Transformer-XL attention K5
 (`csrc/flash_attention.cu`), which `BatchAligner` runs for the conformer
-rel-pos family.
+rel-pos family. Over them: `BatchAligner.align_stream`, word and phoneme
+units, the native grouping engine, and the `alignment_report` CLI
+(`python -m wav2vec2_tpu_torch.cli.alignment_report`) with its data
+readers (FLAC, WAV, the LibriSpeech layout) and reports (JSON, perf
+JSONL, TextGrid, SRT/VTT).
 """
 
 from .align.longform import align_longform

@@ -1,12 +1,12 @@
 """Word grouping: Viterbi path → word timings.
 
-Carried over from `wav2vec2_tpu.align.grouping` (the Python path, which is
-that package's behavioural oracle; its native C++ engine is bit-identical
-to it and is not carried over). Three blocks: (1) collect raw words from
-the path, (2) expand blanks with every policy and select the best
-candidate, (3) confidence scoring and ms conversion with the
+Carried over from `wav2vec2_tpu.align.grouping`. Three blocks: (1) collect
+raw words from the path, (2) expand blanks with every policy and select the
+best candidate, (3) confidence scoring and ms conversion with the
 [start_ms, end_ms) contract (start_ms = start_frame·stride,
-end_ms = (end_frame+1)·stride).
+end_ms = (end_frame+1)·stride). The Python path here is the behavioural
+oracle; plain calls run the bit-identical native C++ engine
+(`native.py`) when it is available, as the JAX package does.
 
 Grouping consumes per-frame evidence vectors (emission log-prob along the
 path, top-2 margin, blank probability) that the port computes on the
@@ -16,7 +16,6 @@ matrix never has to leave the card.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -71,7 +70,7 @@ def frame_evidence_from_log_probs(
 
 
 def group_into_words(
-    path: Sequence[tuple[int, int]] | np.ndarray,
+    path: Sequence[tuple[int, int]],
     tokens: Sequence[int],
     chars: Sequence[Optional[str]],
     expected_words: Sequence[str],
@@ -87,8 +86,20 @@ def group_into_words(
     ).words
 
 
+# native C++ grouping engine dispatch: "auto" uses it when the library is
+# available and the call has no instrumentation hook; "off" forces the
+# Python path (the behavioral oracle); env WAV2VEC2_NATIVE_GROUPING wins
+import os as _os
+
+NATIVE_GROUPING = _os.environ.get("WAV2VEC2_NATIVE_GROUPING", "auto")
+
+# calls served by each engine since import (read by chip_smoke.py, which
+# runs with "require" and prints which engine grouped each batch)
+engine_calls = {"native": 0, "python": 0}
+
+
 def group_into_words_profiled(
-    path: Sequence[tuple[int, int]] | np.ndarray,
+    path: Sequence[tuple[int, int]],
     tokens: Sequence[int],
     chars: Sequence[Optional[str]],
     expected_words: Sequence[str],
@@ -97,12 +108,63 @@ def group_into_words_profiled(
     word_sep_id: int,
     stride_ms: float,
     hp: AlignerHyperParams = _DEFAULT_HP,
+    measure=None,
 ) -> ProfiledWordGroupingOutput:
-    """`path` is a list of (state, frame) pairs, or a 1-D array of states
-    indexed by frame (what the batch drains pass)."""
-    if isinstance(path, np.ndarray):
-        path = [(int(s), t) for t, s in enumerate(path)]
+    """`measure(stage_name, fn) -> fn()` optionally instruments the
+    confidence block (block 3) — the memory tracker hooks in here so the
+    reference's five-stage StageMemoryMap (memory_tracker.rs) gets its
+    `conf` entry even though grouping and confidence are one call in this
+    pipeline. Calls with a measure hook always run the Python path; plain
+    calls run the native C++ engine when available (bit-identical output,
+    a compiled host loop — the role the reference's compiled Rust grouping
+    plays; PERF.md gives its speed against this path on the card's host)."""
+    import time
 
+    if measure is None and NATIVE_GROUPING != "off":
+        from . import native as _native
+
+        # `path` is normally a list of (state, frame) tuples with
+        # frame == index; a plain 1-D state array is accepted as the
+        # zero-copy fast path (the batch/bench drains pass it directly)
+        if isinstance(path, np.ndarray) and path.ndim == 1:
+            states = np.ascontiguousarray(path, np.int32)
+            frames_ok = True
+        else:
+            n_path = len(path)
+            states = np.fromiter((s for s, _ in path), np.int32, n_path)
+            frames = np.fromiter((f for _, f in path), np.int32, n_path)
+            # native path assumes frame == index (every in-tree caller
+            # builds the path with enumerate)
+            frames_ok = bool(
+                np.array_equal(frames, np.arange(n_path, dtype=np.int32))
+            )
+        res = None
+        if frames_ok:
+            # the Python path's transcript-contract warning stays observable
+            if path_to_words._reconstruct_words_from_chars(chars) != list(
+                expected_words
+            ):
+                path_to_words.logger.warning(
+                    "grouping: normalized transcript words differ from char "
+                    "stream words: expected=%r", list(expected_words),
+                )
+            res = _native.group_into_words_native(
+                states, tokens, chars, expected_words, evidence,
+                blank_id, word_sep_id, stride_ms, hp,
+            )
+        if res is not None:
+            engine_calls["native"] += 1
+            words, conf_ms, collect_ms, expand_select_ms = res
+            return ProfiledWordGroupingOutput(
+                words, conf_ms, collect_ms, expand_select_ms
+            )
+        if NATIVE_GROUPING == "require":
+            raise RuntimeError("native grouping required but unavailable")
+
+    if isinstance(path, np.ndarray):  # array fast-path fell through: the
+        path = [(int(s), t) for t, s in enumerate(path)]  # oracle wants tuples
+
+    engine_calls["python"] += 1
     # --- Block 1: collect raw words from the Viterbi path ---
     t0 = time.perf_counter()
     raw = path_to_words.collect(
@@ -131,24 +193,29 @@ def group_into_words_profiled(
 
     # --- Block 3: confidence scoring + ms conversion ---
     t0 = time.perf_counter()
-    words: list[WordTiming] = []
-    for w in expanded:
-        # [start_ms, end_ms): truncate toward zero like the Rust `as u64`
-        start_ms = int(w.start_frame * stride_ms)
-        end_ms = int((w.end_frame + 1) * stride_ms)
-        qc = quality_confidence_score(w.confidence_stats, hp)
-        cc = calibrate_quality_confidence(qc, hp) if qc is not None else None
-        w.confidence_stats.quality_confidence = qc
-        w.confidence_stats.calibrated_confidence = cc
-        words.append(
-            WordTiming(
-                word=w.word,
-                start_ms=start_ms,
-                end_ms=end_ms,
-                confidence=cc,
-                confidence_stats=w.confidence_stats,
+
+    def _confidence_block() -> list[WordTiming]:
+        words: list[WordTiming] = []
+        for w in expanded:
+            # [start_ms, end_ms): truncate-toward-zero like the Rust `as u64`
+            start_ms = int(w.start_frame * stride_ms)
+            end_ms = int((w.end_frame + 1) * stride_ms)
+            qc = quality_confidence_score(w.confidence_stats, hp)
+            cc = calibrate_quality_confidence(qc, hp) if qc is not None else None
+            w.confidence_stats.quality_confidence = qc
+            w.confidence_stats.calibrated_confidence = cc
+            words.append(
+                WordTiming(
+                    word=w.word,
+                    start_ms=start_ms,
+                    end_ms=end_ms,
+                    confidence=cc,
+                    confidence_stats=w.confidence_stats,
+                )
             )
-        )
+        return words
+
+    words = measure("conf", _confidence_block) if measure else _confidence_block()
     conf_ms = (time.perf_counter() - t0) * 1000.0
 
     return ProfiledWordGroupingOutput(words, conf_ms, collect_ms, expand_select_ms)

@@ -110,3 +110,49 @@ def rebuild_words_from_chars(chars: list[Optional[str]]) -> list[str]:
         words.append("".join(cur))
     return words
 
+
+def build_token_sequence_phoneme(
+    transcript: str,
+    vocab: dict[str, int],
+    blank_id: int,
+    word_sep_id: int,
+) -> TokenSequence:
+    """Phoneme-CTC tokenization: the transcript is WHITESPACE-SEPARATED
+    phoneme symbols (possibly multi-codepoint, e.g. "ɛ̃" or "tʃ"), each
+    looked up in the vocab verbatim — no casing normalization, no per-char
+    splitting (the word path's single-char vocab contract does not apply to
+    phoneme vocabs). Unknown symbols are dropped, mirroring the word
+    tokenizer's unknown-char rule. A literal "|" symbol (or the symbol
+    mapping to word_sep_id) emits a word separator state, letting phoneme
+    transcripts keep word boundaries.
+
+    Sequence shape matches the word path (leading blank, ⟨sym, blank⟩ per
+    emission, ⟨sep, blank⟩ at boundaries) so every Viterbi backend and the
+    evidence extractor work unchanged; `chars[s]` holds the full symbol.
+    `normalized_words` contains one entry per emitted phoneme (each unit is
+    its own report row; rebuild_words_from_chars does not apply to
+    multi-codepoint symbols).
+    """
+    tokens: list[int] = [blank_id]
+    chars: list[Optional[str]] = [None]
+    normalized_words: list[str] = []
+
+    emitted_any = False
+    for sym in transcript.split():
+        token_id = vocab.get(sym)
+        if token_id is None:
+            continue
+        if sym == "|" or token_id == word_sep_id:
+            if emitted_any and tokens[-2] != word_sep_id:
+                tokens.append(word_sep_id)
+                chars.append("|")
+                tokens.append(blank_id)
+                chars.append(None)
+            continue
+        tokens.append(token_id)
+        chars.append(sym)
+        tokens.append(blank_id)
+        chars.append(None)
+        normalized_words.append(sym)
+        emitted_any = True
+    return TokenSequence(tokens=tokens, chars=chars, normalized_words=normalized_words)

@@ -10,11 +10,16 @@ on a side stream as soon as the batch's evidence is enqueued, so the copy
 (and the host grouping that waits only for it) overlaps the next batch's
 forward.
 
+`align_stream` is the bounded-memory streaming API over the same pair
+(`submit_padded_batch`, then `group_batch` once the batch's host copies are
+done); `units="phoneme"` switches tokenization and grouping to the
+phoneme-CTC mode.
+
 `use_flash_attention` routes the conformer rel-pos attention through the
 fused kernel K5 (`ops.flash_attention`); by default it is on on a CUDA
 device.
 
-Not ported yet: `align_stream`, the device mesh and int8 serving.
+Not ported yet: the device mesh and int8 serving.
 """
 
 from __future__ import annotations
@@ -29,7 +34,11 @@ import torch
 
 from ..align.grouping import group_into_words
 from ..align.grouping.path_to_words import FrameEvidence
-from ..align.tokenization import build_token_sequence_case_aware
+from ..align.grouping.phoneme import group_into_phonemes
+from ..align.tokenization import (
+    build_token_sequence_case_aware,
+    build_token_sequence_phoneme,
+)
 from ..config import AlignerHyperParams, Wav2Vec2ModelConfig
 from ..errors import InvalidInputError
 from ..models.ctc_model import frame_lengths, log_softmax_logits, wav2vec2_forward
@@ -169,6 +178,7 @@ class BatchAligner:
         sample_rate_hz: int = 16000,
         normalize_on_device: bool = False,
         use_flash_attention: bool | None = None,
+        units: str = "word",
     ):
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unsupported compute dtype {compute_dtype!r}")
@@ -196,10 +206,31 @@ class BatchAligner:
         self.normalize_on_device = normalize_on_device
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        if units not in ("word", "phoneme"):
+            raise ValueError(f"units must be 'word' or 'phoneme', got {units!r}")
+        self.units = units
 
     def _tokenize(self, transcript: str):
+        if self.units == "phoneme":
+            return build_token_sequence_phoneme(
+                transcript, self.vocab, self.blank_id, self.word_sep_id
+            )
         return build_token_sequence_case_aware(
             transcript, self.vocab, self.blank_id, self.word_sep_id
+        )
+
+    def _group(self, path_states, seq, evidence):
+        """Grouping dispatch: word mode runs the full grouping orchestrator
+        (expansion + selection + calibration); phoneme mode emits raw
+        per-state units (align/grouping/phoneme.py)."""
+        if self.units == "phoneme":
+            return group_into_phonemes(
+                path_states, seq, evidence, self.blank_id, self.word_sep_id,
+                self.stride_ms,
+            )
+        return group_into_words(
+            path_states, seq.tokens, seq.chars, seq.normalized_words,
+            evidence, self.blank_id, self.word_sep_id, self.stride_ms, self.hp,
         )
 
     @torch.inference_mode()
@@ -248,6 +279,29 @@ class BatchAligner:
             copied.record(self._copy_stream)
         return tuple(host), copied
 
+    def _submit_entries(self, entries, n_pad, s_pad, max_batch, pad_batch):
+        """Pad one bucket's (audio, TokenSequence) entries to [B, n_pad] and
+        [B, s_pad] (normalized on the host unless normalize_on_device; the
+        batch dim on the pow2 grid ≤ max_batch with pad_batch) and submit
+        it."""
+        b = len(entries)
+        dtype = (np.asarray(entries[0][0]).dtype
+                 if self.normalize_on_device else np.float32)
+        audio = np.zeros((b, n_pad), dtype)
+        tokens = np.zeros((b, s_pad), np.int32)
+        a_l = np.zeros(b, np.int32)
+        s_l = np.zeros(b, np.int32)
+        for j, (a, seq) in enumerate(entries):
+            audio[j, : len(a)] = a if self.normalize_on_device else normalize_audio(a)
+            tokens[j, : len(seq.tokens)] = seq.tokens
+            a_l[j] = len(a)
+            s_l[j] = len(seq.tokens)
+        if pad_batch:
+            audio, a_l, tokens, s_l = _pad_batch_rows(
+                min(max_batch, _round_up_pow2(b, 1)), audio, a_l, tokens, s_l
+            )
+        return self.submit_padded_batch(audio, a_l, tokens, s_l)
+
     def align_padded_batch(self, audio, audio_lens, tokens, s_lens):
         """Host tuples (paths, t_lens, emit_lp, margin, blank_prob,
         entropy)."""
@@ -267,13 +321,83 @@ class BatchAligner:
                 blank_prob=blank_prob[j, :t_i].astype(np.float64),
                 entropy=entropy[j, :t_i],
             )
-            words = group_into_words(
-                paths[j, :t_i], seq.tokens, seq.chars, seq.normalized_words,
-                ev, self.blank_id, self.word_sep_id, self.stride_ms, self.hp,
-            )
+            words = self._group(paths[j, :t_i], seq, ev)
             stats = _utterance_frame_stats(paths[j, :t_i], seq.tokens, self.blank_id, ev)
             outputs.append(AlignmentOutput(words=words, frame_stats=stats))
         return outputs
+
+    def align_stream(
+        self,
+        items,
+        audio_multiple: int = 16000,
+        token_multiple: int = 128,
+        max_batch: int = 64,
+        max_in_flight: int = 2,
+        max_pending: int = 256,
+        bucket_scheme: str = "pow2",
+        pad_batch: bool = True,
+    ):
+        """Streaming API: consume an iterable of (audio, transcript) and
+        yield (index, AlignmentOutput) with bounded memory — audio is read
+        lazily, buckets submit as they fill, and up to `max_in_flight`
+        submitted batches run on the device while the host groups the
+        oldest one, which waits only for that batch's host copies.
+
+        The JAX package's semantics, kept exactly: results arrive in
+        completion order (bucketing reorders by shape), each tagged with its
+        input index; degenerate inputs (empty audio or transcript) yield at
+        once; an utterance too short for its transcript raises
+        InvalidInputError. `max_pending` bounds the utterances waiting in
+        partly filled buckets: when it is reached, the fullest pending
+        bucket submits early. At the end the pending buckets submit in
+        sorted (n_pad, s_pad) order."""
+        pending: dict[tuple[int, int], list[tuple[int, np.ndarray, object]]] = {}
+        in_flight: list[tuple[list, tuple]] = []
+
+        def submit(entries, key):
+            return self._submit_entries(
+                [(a, seq) for _, a, seq in entries], *key, max_batch, pad_batch
+            )
+
+        def drain(entries, handles):
+            grouped = self.group_batch([seq for _, _, seq in entries], handles)
+            for (idx, _, _), out in zip(entries, grouped):
+                yield idx, out
+
+        def launch(entries, key):
+            in_flight.append((entries, submit(entries, key)))
+            if len(in_flight) > max_in_flight:
+                yield from drain(*in_flight.pop(0))
+
+        for idx, (audio, transcript) in enumerate(items):
+            audio = np.asarray(audio)
+            seq = self._tokenize(transcript)
+            if len(audio) == 0 or not transcript.strip() or not seq.normalized_words:
+                yield idx, AlignmentOutput(words=[])
+                continue
+            t_i = self.cfg.conv_output_length(len(audio))
+            min_frames = -(-len(seq.tokens) // 2)
+            if t_i < min_frames:
+                raise InvalidInputError(
+                    f"utterance {idx}: audio too short for transcript: "
+                    f"{t_i} frames < {min_frames} required"
+                )
+            key = (_pad_len(len(audio), audio_multiple, bucket_scheme),
+                   _pad_len(len(seq.tokens), token_multiple, bucket_scheme))
+            entries = pending.setdefault(key, [])
+            entries.append((idx, audio, seq))
+            if len(entries) >= max_batch:
+                del pending[key]
+                yield from launch(entries, key)
+            elif sum(len(v) for v in pending.values()) >= max_pending:
+                # bounded wait: flush the fullest partial bucket early
+                flush_key = max(pending, key=lambda k: len(pending[k]))
+                yield from launch(pending.pop(flush_key), flush_key)
+
+        for key in sorted(pending):
+            yield from launch(pending[key], key)
+        while in_flight:
+            yield from drain(*in_flight.pop(0))
 
     def align_utterances(
         self,
@@ -316,26 +440,10 @@ class BatchAligner:
             bucket.indices = [active[j] for j in bucket.indices]
 
         def submit(bucket: Bucket):
-            b = len(bucket.indices)
-            dtype = (np.asarray(audios[bucket.indices[0]]).dtype
-                     if self.normalize_on_device else np.float32)
-            audio = np.zeros((b, bucket.n_pad), dtype)
-            tokens = np.zeros((b, bucket.s_pad), np.int32)
-            a_l = np.zeros(b, np.int32)
-            s_l = np.zeros(b, np.int32)
-            for j, i in enumerate(bucket.indices):
-                audio[j, : lens[i]] = (
-                    audios[i] if self.normalize_on_device
-                    else normalize_audio(audios[i])
-                )
-                tokens[j, : s_lens[i]] = seqs[i].tokens
-                a_l[j] = lens[i]
-                s_l[j] = s_lens[i]
-            if pad_batch:
-                audio, a_l, tokens, s_l = _pad_batch_rows(
-                    min(max_batch, _round_up_pow2(b, 1)), audio, a_l, tokens, s_l
-                )
-            return self.submit_padded_batch(audio, a_l, tokens, s_l)
+            return self._submit_entries(
+                [(audios[i], seqs[i]) for i in bucket.indices],
+                bucket.n_pad, bucket.s_pad, max_batch, pad_batch,
+            )
 
         def drain(bucket: Bucket, handles: tuple):
             grouped = self.group_batch([seqs[i] for i in bucket.indices], handles)

@@ -1,7 +1,9 @@
 """ForcedAlignerBuilder — wires config artifacts and stage implementations
 (counterpart of `wav2vec2_tpu.pipeline.builder`).
 
-- loads config.json (Wav2Vec2ModelConfig) and vocab.json (single-char keys);
+- loads config.json (Wav2Vec2ModelConfig) and vocab.json: single-char keys,
+  unless the injected tokenizer's `vocab_filter` asks for every key
+  verbatim (PhonemeTokenizer: multi-codepoint symbols such as "tʃ");
 - blank_id = pad_token_id, word_sep_id = vocab['|'] or 0, frame_stride_ms
   from the conv stride product;
 - every stage is injectable, defaulting to CaseAwareTokenizer /
@@ -62,7 +64,12 @@ class ForcedAlignerBuilder:
     def build(self) -> ForcedAligner:
         model_cfg = Wav2Vec2ModelConfig.load(self.config.config_path)
         expected_sr = self.config.expected_sample_rate_hz or DEFAULT_SAMPLE_RATE_HZ
-        vocab = load_vocab(self.config.vocab_path)
+        # the injected tokenizer owns the vocab-filtering policy: the
+        # default char tokenizer keeps the reference's single-char rule,
+        # PhonemeTokenizer needs multi-codepoint symbols verbatim
+        single_char = getattr(self._tokenizer, "vocab_filter", "single_char") \
+            == "single_char"
+        vocab = load_vocab(self.config.vocab_path, single_char_only=single_char)
         hp = self._hp or AlignerHyperParams()
         if self._runtime_backend is not None:
             runtime_backend = self._runtime_backend

@@ -1,6 +1,7 @@
 """Default pipeline stage implementations (counterpart of
 `wav2vec2_tpu.pipeline.defaults`): CaseAwareTokenizer,
-ViterbiSequenceAligner, DefaultWordGrouper."""
+ViterbiSequenceAligner, DefaultWordGrouper, and the phoneme-mode pair
+PhonemeTokenizer / PhonemeGrouper."""
 
 from __future__ import annotations
 
@@ -105,6 +106,7 @@ class DefaultWordGrouper:
         blank_id: int,
         word_sep_id: int,
         frame_stride_ms: float,
+        measure=None,
     ) -> ProfiledWordGroupingOutput:
         path = [(int(s), t) for t, s in enumerate(path_states)]
         return group_into_words_profiled(
@@ -117,4 +119,45 @@ class DefaultWordGrouper:
             word_sep_id,
             frame_stride_ms,
             self.hp,
+            measure=measure,
+        )
+
+
+class PhonemeTokenizer:
+    """Tokenizer for phoneme-CTC vocabs: whitespace-separated symbols looked
+    up verbatim (align/tokenization.build_token_sequence_phoneme). Inject
+    with ForcedAlignerBuilder.with_tokenizer(PhonemeTokenizer());
+    `vocab_filter` tells the builder to keep multi-codepoint vocab symbols
+    the word path's single-char rule would drop."""
+
+    vocab_filter = "verbatim"
+
+    def tokenize(self, transcript, vocab, blank_id, word_sep_id) -> TokenSequence:
+        return tokenization.build_token_sequence_phoneme(
+            transcript, vocab, blank_id, word_sep_id
+        )
+
+
+class PhonemeGrouper:
+    """Unit-level grouping: one timing unit per non-blank, non-separator
+    path span — the reference's envisioned switchable phoneme grouping mode,
+    realized behind the same WordGrouper protocol. Inject with
+    ForcedAlignerBuilder.with_word_grouper(PhonemeGrouper()); pairs with
+    PhonemeTokenizer for phoneme vocabs, but also works with the default
+    char tokenizer (emitting per-letter units)."""
+
+    def group_words(
+        self,
+        path_states: np.ndarray,
+        token_sequence: TokenSequence,
+        evidence: FrameEvidence,
+        blank_id: int,
+        word_sep_id: int,
+        frame_stride_ms: float,
+    ) -> list[WordTiming]:
+        from ..align.grouping.phoneme import group_into_phonemes
+
+        return group_into_phonemes(
+            path_states, token_sequence, evidence, blank_id, word_sep_id,
+            frame_stride_ms,
         )

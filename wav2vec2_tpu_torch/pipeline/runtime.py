@@ -8,7 +8,9 @@ grouping (counterpart of `wav2vec2_tpu.pipeline.runtime`).
 - the min-frames guard rejects T < ceil(S/2) as InvalidInput;
 - `align_profiled` brackets every stage with a device sync, and folds
   tokenization and residual time into group_ms so dp+conf+group ==
-  align_ms exactly.
+  align_ms exactly;
+- `align_profiled_with_memory` adds per-stage peak memory
+  (`memory_tracker`: host RSS, and the device's peak allocation on CUDA).
 
 Log-probs on the device are recognised as torch tensors: DP and evidence
 then run on the device and come back with one copy.
@@ -16,6 +18,7 @@ then run on the device and come back with one copy.
 
 from __future__ import annotations
 
+import inspect
 import logging
 import time
 from dataclasses import dataclass
@@ -168,11 +171,25 @@ class ForcedAligner:
         evidence = self._frame_evidence(forward_output, token_sequence, path_states)
         return path_states, evidence
 
-    def _group(self, path_states, token_sequence, evidence) -> ProfiledWordGroupingOutput:
+    def _group(self, path_states, token_sequence, evidence,
+               measure=None) -> ProfiledWordGroupingOutput:
+        """Route through the injected WordGrouper; the default grouper
+        exposes a profiled variant, custom ones are wrapped. `measure` is
+        the optional memory-tracker hook for the confidence block; custom
+        groupers that don't accept it are called without."""
         if hasattr(self.word_grouper, "group_words_profiled"):
-            return self.word_grouper.group_words_profiled(
+            fn = self.word_grouper.group_words_profiled
+            kwargs = {}
+            if measure is not None:
+                try:
+                    if "measure" in inspect.signature(fn).parameters:
+                        kwargs["measure"] = measure
+                except (TypeError, ValueError):
+                    pass
+            return fn(
                 path_states, token_sequence, evidence,
                 self.blank_id, self.word_sep_id, self._frame_stride_ms,
+                **kwargs,
             )
         words = self.word_grouper.group_words(
             path_states, token_sequence, evidence,
@@ -247,6 +264,91 @@ class ForcedAligner:
             device=backend.device_label(),
             frame_stride_ms=self._frame_stride_ms,
         )
+
+    def align_profiled_with_memory(
+        self, input: AlignmentInput
+    ) -> tuple[ProfiledAlignmentOutput, "StageMemoryMap"]:
+        """align_profiled + per-stage peak memory (runtime.rs:305-493): the
+        forward, dp, post and group stages run under a 5 ms RSS sampler
+        thread with a device sync before each device-memory read. The
+        stages stay separate here (DP, then evidence), as in the JAX
+        package."""
+        from .memory_tracker import MemoryTracker, StageMemoryMap
+
+        backend = self.runtime_backend
+        if not self._check_input(input):
+            return self._empty_profiled(), StageMemoryMap()
+
+        tracker = MemoryTracker(getattr(backend, "device", None))
+        normalized = self._normalized(input)
+        backend.synchronize()
+        t_total0 = time.perf_counter()
+
+        forward_output = tracker.measure(
+            "forward", backend.synchronize,
+            lambda: backend.infer_profiled(normalized),
+        )
+
+        t_align0 = time.perf_counter()
+        token_sequence = self._tokenize_checked(input, forward_output.t_len)
+        if not token_sequence.tokens:
+            return self._empty_profiled(), tracker.stages
+
+        t0 = time.perf_counter()
+        path_states = tracker.measure(
+            "dp", backend.synchronize,
+            lambda: self.sequence_aligner.align_path(
+                forward_output, token_sequence.tokens
+            ),
+        )
+        dp_ms = (time.perf_counter() - t0) * 1000.0
+
+        # "post" is the device-side post-processing of the [T, V] log-probs
+        # that is left after the forward's log-softmax: the evidence
+        evidence = tracker.measure(
+            "post", backend.synchronize,
+            lambda: self._frame_evidence(
+                forward_output, token_sequence, path_states
+            ),
+        )
+        grouped = tracker.measure(
+            "group", backend.synchronize,
+            lambda: self._group(
+                path_states, token_sequence, evidence,
+                measure=lambda stage, fn: tracker.measure(
+                    stage, backend.synchronize, fn
+                ),
+            ),
+        )
+        backend.synchronize()
+        align_ms = (time.perf_counter() - t_align0) * 1000.0
+        total_ms = (time.perf_counter() - t_total0) * 1000.0
+        t_len, s_len = forward_output.t_len, len(token_sequence.tokens)
+        profiled = ProfiledAlignmentOutput(
+            output=AlignmentOutput(
+                words=grouped.words,
+                frame_stats=_utterance_frame_stats(
+                    path_states, token_sequence.tokens, self.blank_id, evidence
+                ),
+            ),
+            timings=AlignmentStageTimings(
+                forward_ms=forward_output.forward_ms,
+                post_ms=forward_output.post_ms,
+                dp_ms=dp_ms,
+                group_ms=align_ms - dp_ms - grouped.conf_ms,
+                conf_ms=grouped.conf_ms,
+                align_ms=align_ms,
+                total_ms=total_ms,
+            ),
+            num_frames_t=t_len,
+            state_len=s_len,
+            ts_product=t_len * s_len,
+            vocab_size=forward_output.vocab_size,
+            dtype=forward_output.dtype,
+            device=backend.device_label(),
+            frame_stride_ms=self._frame_stride_ms,
+        )
+        return profiled, tracker.stages
 
     def _empty_profiled(self) -> ProfiledAlignmentOutput:
         return ProfiledAlignmentOutput(
