@@ -30,7 +30,18 @@ user calls, with random weights from a numpy seed:
   perf, srt, and `--units phoneme` with a 392-wide head (K1 resident),
   with gates on the stream's order and words, native vs Python grouping
   on every drained batch, batch vs single, the perf run's device memory,
-  and each tier it launched against its plain version.
+  and each tier it launched against its plain version;
+- the wav2vec2-encoder families: 12 presets (pre-norm lv60 and XLS-R-53,
+  MMS-1b with attention adapters, HuBERT base and large, data2vec-audio,
+  WavLM base-plus and large, mHuBERT-147, the conv adapter's 160 ms
+  frames, UniSpeech-SAT, UniSpeech with phoneme units) and the rotary
+  conformer, each at full width and depth through the batch entry at bf16
+  and f32 with gates (a) K1 == viterbi_numpy, (b) padded == unpadded f32
+  within 1e-4, (c) bf16 vs f32; lv60 and mms-1b timed at 32 × 10 s; K5
+  forced (`WAV2VEC2_FLASH_FORCE=1`) on plain attention at head dims 64 and
+  80 and on rotary attention, timed against SDPA; one 2-layer HF-format
+  directory per family (its own weight prefix) through
+  `ForcedAlignerBuilder`, and the CLI on the hubert-large directory.
 
 The host grouping runs the native engine throughout
 (`WAV2VEC2_NATIVE_GROUPING=require`): a silent fall-back to Python fails.
@@ -1011,6 +1022,27 @@ def check_phoneme_gate(probe, vocab):
     return launched, rows
 
 
+def cli_cases(rng):
+    """The CLI phase's utterances, [(seconds, transcript)]: 64 word cases
+    that fill the 2, 4, 8, 16 and 32 s buckets at about 2.5 words a second,
+    and 8 phoneme cases of 2-7.5 s."""
+    cases = []
+    for i in range(CLI_CASES):
+        hi = CLI_BUCKETS_S[i % len(CLI_BUCKETS_S)]
+        sec = float(hi * rng.uniform(0.55, 0.98))
+        words = rng.choice(WORDS, size=max(1, round(CLI_WORDS_PER_S * sec)))
+        cases.append((sec, " ".join(words)))
+    ph_vocab = phoneme_vocab()
+    symbols = [s for s in ph_vocab if ph_vocab[s] > 4]
+    ph_cases = []
+    for i in range(CLI_PHONEME_CASES):
+        sec = float(rng.uniform(2.0, 7.5))
+        n_words = max(1, round(CLI_WORDS_PER_S * sec))
+        ph_cases.append((sec, " | ".join(" ".join(rng.choice(symbols, size=int(rng.integers(2, 6))))
+                                         for _ in range(n_words))))
+    return cases, ph_cases
+
+
 def run_cli(device, card, params_np, cfg, vocab, phoneme_head):
     """The `alignment_report` CLI, in process, at the full width and depth
     of wav2vec2-base with random weights, on a LibriSpeech-layout dataset
@@ -1032,20 +1064,8 @@ def run_cli(device, card, params_np, cfg, vocab, phoneme_head):
     from wav2vec2_tpu_torch.data.audio import read_audio_mono
 
     rng = np.random.default_rng(11)
-    cases = []
-    for i in range(CLI_CASES):
-        hi = CLI_BUCKETS_S[i % len(CLI_BUCKETS_S)]
-        sec = float(hi * rng.uniform(0.55, 0.98))
-        words = rng.choice(WORDS, size=max(1, round(CLI_WORDS_PER_S * sec)))
-        cases.append((sec, " ".join(words)))
+    cases, ph_cases = cli_cases(rng)
     ph_vocab = phoneme_vocab()
-    symbols = [s for s in ph_vocab if ph_vocab[s] > 4]
-    ph_cases = []
-    for i in range(CLI_PHONEME_CASES):
-        sec = float(rng.uniform(2.0, 7.5))
-        n_words = max(1, round(CLI_WORDS_PER_S * sec))
-        ph_cases.append((sec, " | ".join(" ".join(rng.choice(symbols, size=int(rng.integers(2, 6))))
-                                         for _ in range(n_words))))
     stride_ms = cfg.frame_stride_ms(SAMPLE_RATE)
     totals = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1476,14 +1496,18 @@ def check_flash(device, cases):
     return worst
 
 
-def flash_bound(b, nh, t_pad, hd, elem_bytes, peak_ops):
-    """(bound_ms, bound_by) of one K5 launch: bytes moved once (q, q_pos,
-    k, v read, out written, the 2·T_pad − 1 table rows read, the f32 mask)
-    over 3.35 TB/s, against 6·T_pad²·hd operations per (batch, head) —
-    q·kᵀ, the position term, P·V — over `peak_ops`."""
+def flash_bound(b, nh, t_pad, hd, elem_bytes, peak_ops, rel=True):
+    """(bound_ms, bound_by) of one K5 launch: bytes moved once (q, k, v
+    read, out written, the f32 mask; with `rel` also q_pos and the
+    2·T_pad − 1 table rows) over 3.35 TB/s, against the operations per
+    (batch, head) — q·kᵀ and P·V, 4·T_pad²·hd, and with `rel` the position
+    term, 6·T_pad²·hd — over `peak_ops`."""
     n = b * nh * t_pad * hd
-    nbytes = elem_bytes * (5 * n + nh * (2 * t_pad - 1) * hd) + 4 * b * t_pad
-    ops = 6 * t_pad * t_pad * hd * b * nh
+    if rel:
+        nbytes = elem_bytes * (5 * n + nh * (2 * t_pad - 1) * hd) + 4 * b * t_pad
+    else:
+        nbytes = elem_bytes * 4 * n + 4 * b * t_pad
+    ops = (6 if rel else 4) * t_pad * t_pad * hd * b * nh
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -1710,6 +1734,529 @@ def run_conformer(device, vocab, card):
     return counts, k5, params_np
 
 
+# --- the wav2vec2-encoder families ----------------------------------------
+# the presets of the families phase (wav2vec2_tpu_torch/models/presets.py),
+# each at its full width and depth, with the config.json model_type its HF
+# checkpoint carries; the base-width ones first, mms-1b last
+FAMILY_PRESETS = {
+    "hubert-base-ls960": "hubert",
+    "unispeech-sat-base-100h": "unispeech-sat",
+    "mhubert-147": "hubert",
+    "wavlm-base-plus": "wavlm",
+    "data2vec-audio-base-960h": "data2vec-audio",
+    "wav2vec2-large-960h-lv60": "wav2vec2",
+    "xlsr-53": "wav2vec2",
+    "hubert-large-ls960-ft": "hubert",
+    "unispeech-large-phoneme": "unispeech",
+    "wavlm-large": "wavlm",
+    "wav2vec2-large-adapter": "wav2vec2",
+    "wav2vec2-conformer-rope-large-960h": "wav2vec2-conformer",
+    "mms-1b": "wav2vec2",
+}
+# presets whose parameter tree has the shapes of another's (all fields equal
+# but the vocabulary): they take its random weights, each with norms,
+# biases and head drawn anew
+SHARED_TREE = {"hubert-base-ls960": "wav2vec2-base-960h",
+               "unispeech-sat-base-100h": "wav2vec2-base-960h",
+               "xlsr-53": "wav2vec2-large-960h-lv60",
+               "hubert-large-ls960-ft": "wav2vec2-large-960h-lv60",
+               "unispeech-large-phoneme": "wav2vec2-large-960h-lv60"}
+TIMED_PRESETS = ("wav2vec2-large-960h-lv60", "mms-1b")
+FORCED_K5_PRESETS = ("wav2vec2-large-960h-lv60", "mms-1b",
+                     "wav2vec2-conformer-rope-large-960h")
+FAMILY_BATCH = 8
+FAMILY_DIR_LAYERS = 2
+FAMILY_CLI_CASES = 8
+# the conv adapter's 160 ms frames hold about 6 words in 10 s of a
+# transcript of the smoke's short words; 20 ms frames take 2 a second
+ADAPTER_WORDS_PER_S, WORDS_PER_S = 0.5, 2.0
+_NORM_KEYS = {"layer_norm", "final_layer_norm", "norm", "proj_layer_norm",
+              "ffn1_layer_norm", "ffn2_layer_norm", "self_attn_layer_norm"}
+
+
+def perturb_tree(tree, seed):
+    """A copy of the numpy tree with every norm affine, folded BatchNorm,
+    WavLM gate constant and bias drawn from `seed` (init_params leaves
+    them at 1 or 0, where a wrong transpose or a missed affine would pass
+    unseen) and the conformer's pos_bias_u/v non-zero; the other leaves
+    are shared."""
+    rng = np.random.default_rng(seed)
+
+    def draw(a, one):
+        return np.float32(1.0 if one else 0.0) + np.float32(0.2) * rng.standard_normal(
+            a.shape, dtype=np.float32)
+
+    def walk(node, parent):
+        if isinstance(node, list):
+            return [walk(v, parent) for v in node]
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, (dict, list)):
+                out[k] = walk(v, k)
+            elif parent in _NORM_KEYS or parent == "batch_norm":
+                out[k] = draw(v, k in ("weight", "scale"))
+            elif k == "gru_rel_pos_const":
+                out[k] = draw(v, True)
+            elif k in ("bias", "pos_bias_u", "pos_bias_v"):
+                out[k] = draw(v, False)
+            else:
+                out[k] = v
+        return out
+
+    return walk(tree, None)
+
+
+def family_inputs(rng, vocab, units, words_per_s, batch=FAMILY_BATCH, n_pad_s=10.0):
+    """A padded batch of `batch` white-noise utterances from 10 s down to
+    6 s (padded to `n_pad_s`) with transcripts of `words_per_s` words a
+    second: the smoke's words, or phoneme symbols of 2-5 to a word.
+    Returns (transcripts, token sequences, audio int16, audio lengths,
+    tokens, token lengths)."""
+    from wav2vec2_tpu_torch.align.tokenization import (
+        build_token_sequence_case_aware,
+        build_token_sequence_phoneme,
+    )
+
+    secs = np.linspace(n_pad_s, 6.0, batch)
+    symbols = [s for s in vocab if vocab[s] > 4]
+    transcripts = []
+    for sec in secs:
+        n = max(2, round(words_per_s * sec))
+        if units == "phoneme":
+            words = (" ".join(rng.choice(symbols, size=int(rng.integers(2, 6))))
+                     for _ in range(n))
+            transcripts.append(" | ".join(words))
+        else:
+            pool = WORDS[:8] if words_per_s < 1 else WORDS
+            transcripts.append(" ".join(rng.choice(pool, size=n)))
+    build = build_token_sequence_phoneme if units == "phoneme" else build_token_sequence_case_aware
+    seqs = [build(t, vocab, 0, 4) for t in transcripts]
+    n_pad = int(n_pad_s * SAMPLE_RATE)
+    audio = np.zeros((batch, n_pad), np.int16)
+    a_l = (secs * SAMPLE_RATE).astype(np.int32)
+    for j, n in enumerate(a_l):
+        audio[j, :n] = (rng.normal(size=n) * 4000).clip(-32768, 32767)
+    s_pad = _round_s_pad(max(len(s.tokens) for s in seqs))
+    tokens = np.zeros((batch, s_pad), np.int32)
+    for j, s in enumerate(seqs):
+        tokens[j, : len(s.tokens)] = s.tokens
+    s_l = np.array([len(s.tokens) for s in seqs], np.int32)
+    return transcripts, seqs, audio, a_l, tokens, s_l
+
+
+def _round_s_pad(s):
+    """S_pad on the batch engine's grid: 128·2^k."""
+    n = 128
+    while n < s:
+        n *= 2
+    return n
+
+
+def lp_gate(lp, ref, t_lens, what):
+    """bench.py's log-prob gate over the valid frames: mean |Δ| <= 0.05,
+    p99 |Δ| <= 0.3. Returns (mean, p99)."""
+    d = np.concatenate([np.abs(lp[j, :t].astype(np.float64) - ref[j, :t]).ravel()
+                        for j, t in enumerate(t_lens)])
+    mean_d, p99_d = float(d.mean()), float(np.percentile(d, 99))
+    if not (mean_d <= 0.05 and p99_d <= 0.3):
+        raise AssertionError(f"{what}: log-probs mean|Δ|={mean_d} (cap 0.05), "
+                             f"p99|Δ|={p99_d} (cap 0.3)")
+    return mean_d, p99_d
+
+
+def run_family(device, card, name, cfg, params, vocab, units):
+    """One preset through `BatchAligner.submit_padded_batch` on a padded
+    batch of 8 utterances (10 s down to 6 s) at bf16 and at f32 (TF32 off),
+    with the gates: (a) K1's paths of the bf16 batch == viterbi_numpy on 4
+    rows; (b) each utterance's f32 log-probs in the padded batch within
+    1e-4 of its unpadded forward; (c) bf16 against f32 log-probs within
+    bench.py's gate; and every utterance aligned to all its words (units),
+    in order and monotone, on the 160 ms grid for the conv adapter.
+    Returns (launch counts, the bf16 aligner, the f32 aligner, the device
+    inputs, the normalized audio, the bf16 forward ms)."""
+    import torch
+
+    from wav2vec2_tpu_torch.models.ctc_model import log_softmax_logits, wav2vec2_forward
+    from wav2vec2_tpu_torch.ops.viterbi_ref import viterbi_numpy
+    from wav2vec2_tpu_torch.parallel.batching import BatchAligner, _normalize_batch
+
+    rng = np.random.default_rng(30)
+    words_per_s = ADAPTER_WORDS_PER_S if cfg.add_adapter else WORDS_PER_S
+    _, seqs, *arrays = family_inputs(rng, vocab, units, words_per_s)
+    inputs = [torch.from_numpy(a).to(device) for a in arrays]
+    aligners = {dtype: BatchAligner(cfg, params, vocab, compute_dtype=dtype, device=device,
+                                    normalize_on_device=True, units=units)
+                for dtype in ("bfloat16", "float32")}
+    reset_launches()
+    lp, outs = {}, {}
+    for dtype, aligner in aligners.items():
+        handles = aligner.submit_padded_batch(*inputs, return_log_probs=True)
+        outs[dtype] = aligner.group_batch(seqs, handles)
+        lp[dtype] = handles[-1].cpu().numpy()
+        if dtype == "bfloat16":
+            paths, t_lens = handles[0].cpu().numpy(), handles[1].cpu().numpy()
+    counts = read_launches()
+    t_pad = cfg.conv_output_length(arrays[0].shape[1])
+    for dtype, x in lp.items():
+        if not np.isfinite(x).all() or x.shape != (FAMILY_BATCH, t_pad, cfg.vocab_size):
+            raise AssertionError(f"{name} {dtype}: log-probs not finite or of shape {x.shape}")
+    for j in range(4):
+        t_i = int(t_lens[j])
+        oracle = [s for s, _ in viterbi_numpy(lp["bfloat16"][j, :t_i], np.asarray(seqs[j].tokens))]
+        if list(paths[j, :t_i]) != oracle:
+            raise AssertionError(f"{name}: gate (a): K1 path differs from viterbi_numpy at {j}")
+    stride_ms = cfg.frame_stride_ms(SAMPLE_RATE)
+    for dtype, rows in outs.items():
+        for j, (seq, out) in enumerate(zip(seqs, rows)):
+            check_words(out.words, seq.normalized_words, f"{name} {dtype} utterance {j}")
+            if any(w.start_ms % stride_ms or w.end_ms % stride_ms for w in out.words):
+                raise AssertionError(f"{name}: boundaries off the {stride_ms:g} ms grid")
+    audio = _normalize_batch(inputs[0], inputs[1])
+    f32 = aligners["float32"]
+    worst = 0.0
+    with torch.inference_mode():
+        for j in range(FAMILY_BATCH):
+            n = int(arrays[1][j])
+            alone = log_softmax_logits(wav2vec2_forward(
+                f32.params, audio[j:j + 1, :n], f32.cfg, compute_dtype=torch.float32))
+            alone = alone[0].cpu().numpy()
+            if alone.shape[0] != int(t_lens[j]):
+                raise AssertionError(f"{name}: unpadded forward gave {alone.shape[0]} frames, "
+                                     f"want {int(t_lens[j])}")
+            worst = max(worst, float(np.abs(lp["float32"][j, : alone.shape[0]] - alone).max()))
+    if worst > 1e-4:
+        raise AssertionError(f"{name}: gate (b): padded vs unpadded f32 log-probs differ by "
+                             f"{worst} (bound 1e-4)")
+    mean_d, p99_d = lp_gate(lp["bfloat16"], lp["float32"], t_lens, f"{name}: gate (c)")
+    bf16 = aligners["bfloat16"]
+    with torch.inference_mode():
+        fwd = lambda: wav2vec2_forward(bf16.params, audio, bf16.cfg,  # noqa: E731
+                                       audio_lens=inputs[1], compute_dtype=torch.bfloat16)
+        fwd()
+        fwd_ms = cuda_time_ms(fwd, 3)
+    print(f"family {name}: {FAMILY_BATCH} x 6-10 s (T_pad={t_pad}, S_pad={arrays[2].shape[1]}, "
+          f"{stride_ms:g} ms frames, units {units}), gates passed: (a) K1 == viterbi_numpy "
+          f"(4 rows); (b) padded vs unpadded f32 max|Δ|={worst:.2e}; (c) bf16 vs f32 "
+          f"mean|Δ|={mean_d:.4f} p99|Δ|={p99_d:.4f}; all units in order; launches "
+          f"{ {k: n for k, n in counts.items() if n} }; bf16 forward {fwd_ms:.3f} ms "
+          f"(CUDA events, median of 3) {card}")
+    return counts, bf16, f32, inputs, audio
+
+
+def forced_k5(name, cfg, bf16, f32, inputs, audio):
+    """WAV2VEC2_FLASH_FORCE=1 on the preset's batch: K5 once per layer in the
+    f32 and the bf16 forward, the f32 forward within 1e-3 relative of the
+    default forward's logits (the conformer's gate), the bf16 log-probs
+    within bench.py's gate of the default f32 ones. Returns the K5
+    launches."""
+    import dataclasses
+
+    import torch
+
+    from wav2vec2_tpu_torch.models.ctc_model import log_softmax_logits, wav2vec2_forward
+    from wav2vec2_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(cfg, use_flash_attention=True)  # as BatchAligner sets it
+    with torch.inference_mode():
+        default = wav2vec2_forward(f32.params, audio, cfg, audio_lens=inputs[1])
+        os.environ[fa.FORCE_ENV] = "1"
+        try:
+            reset_launches()
+            forced = wav2vec2_forward(f32.params, audio, cfg, audio_lens=inputs[1])
+            n32 = read_launches()["k5"]
+            reset_launches()
+            forced_bf16 = wav2vec2_forward(bf16.params, audio, cfg, audio_lens=inputs[1],
+                                           compute_dtype=torch.bfloat16)
+            n16 = read_launches()["k5"]
+        finally:
+            del os.environ[fa.FORCE_ENV]
+        rel_err = float((forced - default).abs().max()) / float(default.abs().max())
+        t_lens = [cfg.conv_output_length(int(n)) for n in inputs[1].cpu().numpy()]
+        ref = log_softmax_logits(default).cpu().numpy()
+        mean_d, p99_d = lp_gate(log_softmax_logits(forced_bf16).cpu().numpy(), ref, t_lens,
+                                f"{name} forced K5 bf16")
+    if n32 != cfg.num_hidden_layers or n16 != cfg.num_hidden_layers:
+        raise AssertionError(f"{name} forced: K5 launched {n32} (f32) and {n16} (bf16) times "
+                             f"for {cfg.num_hidden_layers} layers")
+    if not rel_err <= 1e-3:
+        raise AssertionError(f"{name} forced: f32 forward through K5 vs the default: relative "
+                             f"error {rel_err} (bound 1e-3)")
+    print(f"family {name}, WAV2VEC2_FLASH_FORCE=1: K5 {n32} launches in the f32 forward, "
+          f"{n16} in the bf16 one ({cfg.num_hidden_layers} layers, head dim "
+          f"{cfg.hidden_size // cfg.num_attention_heads}); f32 logits vs the default forward "
+          f"relative max error {rel_err:.2e} (bound 1e-3); bf16 log-probs vs default f32 "
+          f"mean|Δ|={mean_d:.4f} p99|Δ|={p99_d:.4f}")
+    return n32 + n16
+
+
+def time_family(card, name, aligner, vocab):
+    """The preset at B=32 x 10 s bf16 through `time_batch_path` (3 batches,
+    double-buffered) and its forward alone (CUDA events)."""
+    import torch
+
+    from wav2vec2_tpu_torch.models.ctc_model import wav2vec2_forward
+    from wav2vec2_tpu_torch.parallel.batching import _normalize_batch
+
+    rtf, total_s, peak_gb, wait_ms, group_ms = time_batch_path(aligner, vocab, 32, repeats=3)
+    _, audio, a_l, _, _ = batch_inputs(np.random.default_rng(2), vocab, 32, 10.0)
+    audio, a_l = (torch.from_numpy(a).to(aligner.device) for a in (audio, a_l))
+    with torch.inference_mode():
+        audio = _normalize_batch(audio, a_l)
+        fwd = lambda: wav2vec2_forward(aligner.params, audio, aligner.cfg,  # noqa: E731
+                                       audio_lens=a_l, compute_dtype=torch.bfloat16)
+        fwd()
+        fwd_ms = cuda_time_ms(fwd, 3)
+        groups, busy_ms, top = kernel_time_split(fwd)
+    print(f"time: {name} batch path {rtf:.1f}x realtime (3 batches of 32 x 10 s, bf16, "
+          f"submit/drain double-buffered, {total_s / 3 * 1e3:.1f} ms wall per batch; host "
+          f"waited {wait_ms:.1f} ms, grouped {group_ms:.1f} ms; peak device memory "
+          f"{peak_gb:.2f} GB); forward {fwd_ms:.3f} ms (CUDA events, median of 3) {card}")
+    split = ("not measured (torch.profiler saw no CUDA kernel)" if not busy_ms else
+             f"device busy {busy_ms:.3f} ms; "
+             + ", ".join(f"{g} {ms:.3f} ms" for g, ms in groups.items())
+             + "; longest: " + "; ".join(f"{k[:60]} {ms:.3f} ms" for k, ms in top))
+    print(f"time: {name} forward by kernel (torch.profiler, one forward, 32 x 10 s bf16): "
+          f"{split} {card}")
+    return dict(rtf=rtf, batch_ms=total_s / 3 * 1e3, forward_ms=fwd_ms, peak_gb=peak_gb)
+
+
+def time_flash_plain(device, card, b, nh, t, hd):
+    """K5 on plain masked attention at B=32, NH=16, T=499 (T_pad 512) in
+    bf16, the shape of the forced forwards at 32 x 10 s: the kernel alone,
+    its plain version and scaled_dot_product_attention, with the bound of
+    the 4·T_pad²·hd operations a (batch, head) does (q·kᵀ and P·V). Head
+    dim 80 runs through the 128-wide template, zero-filled."""
+    import torch
+    import torch.nn.functional as F
+
+    from wav2vec2_tpu_torch.ops import flash_attention as fa
+    from wav2vec2_tpu_torch.ops import flash_attention_ref
+
+    scale = hd ** -0.5
+    rng = np.random.default_rng(14)
+    q, k, v, mask, _, _ = flash_inputs(rng, b, nh, t, hd, "bfloat16", False, True, device)
+    pq, pk, pv, pmask, _ = fa.pad_inputs(q, k, v, mask, None, None)
+    t_pad = pq.shape[2]
+    kernel = lambda: fa.flash_attention(pq, pk, pv, pmask, scale=scale)  # noqa: E731
+    plain = lambda: flash_attention_ref.attention(pq, pk, pv, pmask, scale=scale)  # noqa: E731
+    got, want = kernel().float(), plain().float()
+    err = float((got - want).abs().max())
+    rel_err = err / float(want.abs().max())
+    if rel_err > FLASH_REL_BOUND["bfloat16"]:
+        raise AssertionError(f"K5 plain hd={hd}: relative error {rel_err}")
+    k_ms, p_ms = interleaved_ms(kernel, plain, 20, 3)
+    with torch.inference_mode():
+        bias = pmask[:, None, None, :].to(torch.bfloat16)
+        library = lambda: F.scaled_dot_product_attention(pq, pk, pv, attn_mask=bias,  # noqa: E731
+                                                         scale=scale)
+        library()
+        lib_ms = kernel_ms(library, 20)
+    bound_ms, bound_by = flash_bound(b, nh, t_pad, hd, 2, PEAK_BF16_OPS_PER_S, rel=False)
+    print(f"time: K5 plain masked attention (forced) hd={hd}: kernel {k_ms:.4f} ms vs plain "
+          f"PyTorch {p_ms:.3f} ms vs SDPA {lib_ms:.4f} ms (K5/SDPA {k_ms / lib_ms:.2f}) at B={b} "
+          f"NH={nh} T={t} (T_pad={t_pad}) bf16; bound {bound_ms:.4f} ms by {bound_by} "
+          f"({bound_ms / k_ms:.1%} of it); relative error {rel_err:.2e} (device time, medians) "
+          f"{card}")
+    return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by, err=err)
+
+
+def family_config_dict(cfg, model_type, n_layers):
+    """The config.json of a preset's HF-format directory, cut to
+    `n_layers` encoder layers."""
+    import dataclasses
+
+    d = {k: v for k, v in dataclasses.asdict(cfg).items() if v is not None}
+    d.pop("use_flash_attention")
+    return {**d, "model_type": model_type, "num_hidden_layers": n_layers}
+
+
+def run_family_dir(device, card, name, model_type, cfg, tree, vocab, units, root: Path):
+    """The preset at full width and 2 layers as an HF-format directory
+    (`params_to_hf_flat_dict` under its model_type's prefix), loaded by
+    `ForcedAlignerBuilder` at f32: its units on one 8 s request equal
+    `BatchAligner`'s at f32 on the same weights (same units, boundaries
+    within one frame). Returns the launch counts and the directory."""
+    from wav2vec2_tpu_torch import AlignmentInput, ForcedAlignerBuilder, Wav2Vec2Config
+    from wav2vec2_tpu_torch.config import Wav2Vec2ModelConfig
+    from wav2vec2_tpu_torch.models.params import params_from_jax, params_to_hf_flat_dict
+    from wav2vec2_tpu_torch.parallel.batching import BatchAligner
+    from wav2vec2_tpu_torch.pipeline.defaults import PhonemeGrouper, PhonemeTokenizer
+    from wav2vec2_tpu_torch.utils.checkpoint import save_safetensors
+
+    d = family_config_dict(cfg, model_type, FAMILY_DIR_LAYERS)
+    cfg2 = Wav2Vec2ModelConfig.from_dict(d)
+    tree2 = first_layers(tree, FAMILY_DIR_LAYERS)
+    root.mkdir()
+    (root / "config.json").write_text(json.dumps(d))
+    (root / "vocab.json").write_text(json.dumps(vocab))
+    save_safetensors(root / "model.safetensors",
+                     params_to_hf_flat_dict(tree2, cfg2, model_type=model_type))
+    builder = ForcedAlignerBuilder(Wav2Vec2Config(
+        model_path=str(root / "model.safetensors"), config_path=str(root / "config.json"),
+        vocab_path=str(root / "vocab.json"), device=str(device)))
+    if units == "phoneme":
+        builder = builder.with_tokenizer(PhonemeTokenizer()).with_word_grouper(PhonemeGrouper())
+    aligner = builder.build()
+    rng = np.random.default_rng(31)
+    words_per_s = ADAPTER_WORDS_PER_S if cfg.add_adapter else WORDS_PER_S
+    (transcript,), seqs, audio, a_l, _, _ = family_inputs(rng, vocab, units, words_per_s,
+                                                          batch=1, n_pad_s=8.0)
+    samples = audio[0, : a_l[0]].astype(np.float32) / np.float32(32768)
+    reset_launches()
+    got = aligner.align(AlignmentInput(SAMPLE_RATE, samples, transcript)).words
+    want = BatchAligner(cfg2, params_from_jax(tree2, device=device), vocab,
+                        compute_dtype="float32", device=device, units=units) \
+        .align_utterances([samples], [transcript])[0].words
+    counts = read_launches()
+    stride_ms = cfg.frame_stride_ms(SAMPLE_RATE)
+    check_words(got, seqs[0].normalized_words, f"{name} directory, single entry")
+    if [w.word for w in got] != [w.word for w in want]:
+        raise AssertionError(f"{name} directory: single and batch units differ")
+    exact = sum((a.start_ms, a.end_ms) == (b.start_ms, b.end_ms) for a, b in zip(got, want))
+    if any(max(abs(a.start_ms - b.start_ms), abs(a.end_ms - b.end_ms)) > stride_ms
+           for a, b in zip(got, want)):
+        raise AssertionError(f"{name} directory: single vs batch boundaries beyond one frame")
+    size_mb = (root / "model.safetensors").stat().st_size / 1e6
+    print(f"family {name}: HF-format directory ({model_type}, {FAMILY_DIR_LAYERS} layers, "
+          f"{size_mb:.0f} MB) through ForcedAlignerBuilder at f32: {len(got)} units == "
+          f"BatchAligner's, {exact}/{len(got)} boundaries exact, the rest within one frame; "
+          f"launches { {k: n for k, n in counts.items() if n} } {card}")
+    return counts
+
+
+def run_family_cli(device, card, model_dir: Path, vocab):
+    """`alignment_report` (batch, bf16, textgrid) with an HF-format model
+    directory over the first 8 utterances of the CLI phase's dataset: every
+    utterance gets a TextGrid with all its words in order."""
+    from wav2vec2_tpu_torch.cli.alignment_report import run
+
+    cases, _ = cli_cases(np.random.default_rng(11))
+    cases = cases[:FAMILY_CLI_CASES]
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_librispeech(Path(tmp), cases, np.random.default_rng(12))
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = run(["--model-dir", str(model_dir), "--dataset-root", str(data), "--device",
+                  str(device), "--output-format", "textgrid", "--compute-dtype", "bfloat16"])
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        if rc != 0:
+            raise AssertionError(f"alignment_report with {model_dir.name} exited {rc}")
+        grids = sorted(data.rglob("*.TextGrid"))
+        texts = {}
+        for trans in data.rglob("*.trans.txt"):
+            for line in trans.read_text().splitlines():
+                uid, text = line.split(" ", 1)
+                texts[uid] = text.split()
+        if len(grids) != FAMILY_CLI_CASES:
+            raise AssertionError(f"alignment_report with {model_dir.name} wrote {len(grids)} "
+                                 f"TextGrids for {FAMILY_CLI_CASES} utterances")
+        for grid in grids:
+            words = [w.upper() for w, *_ in textgrid_words(grid)]
+            if words != [w.upper() for w in texts[grid.name.split(".")[0]]]:
+                raise AssertionError(f"{grid.name}: words differ from the transcript")
+    audio_s = sum(sec for sec, _ in cases)
+    print(f"family cli: alignment_report --model-dir {model_dir.name} (batch, bf16, textgrid) "
+          f"over {FAMILY_CLI_CASES} utterances ({audio_s:.1f} s): all words in order; wall "
+          f"{wall:.3f} s; launches { {k: n for k, n in counts.items() if n} } {card}")
+    return counts
+
+
+def run_families(device, card, vocab):
+    """The families phase: the 13 presets of FAMILY_PRESETS at full width and
+    depth through the batch entry (gates (a)-(c)); lv60 and mms-1b timed at
+    32 x 10 s bf16; K5 forced on lv60 (head dim 64), mms-1b (80) and the
+    rotary conformer; K5 on forced plain attention timed at hd 64 and 80;
+    one HF-format directory (2 layers) per preset but xlsr-53 (lv60's
+    family) through `ForcedAlignerBuilder`, and the CLI with the
+    hubert-large directory. Weights from `init_params` with a numpy seed,
+    drawn on host threads ahead of the card; norms, BatchNorms, gates and
+    biases drawn anew by `perturb_tree`. Returns (launches of the phase,
+    K5's plain-attention times by head dim, the timed presets' numbers)."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from wav2vec2_tpu_torch.models import presets
+    from wav2vec2_tpu_torch.models.params import init_params, params_from_jax
+
+    ph_vocab = phoneme_vocab()
+    cfgs = {name: presets.PRESETS[name](
+        PHONEME_VOCAB if name == "unispeech-large-phoneme" else 32) for name in FAMILY_PRESETS}
+    sources = list(dict.fromkeys(SHARED_TREE.get(name, name) for name in FAMILY_PRESETS))
+    for name, src in SHARED_TREE.items():
+        src_cfg = presets.PRESETS[src](32)
+        if dataclasses.replace(cfgs[name], vocab_size=32) != src_cfg:
+            raise AssertionError(f"{name} does not have {src}'s parameter shapes")
+    last_use = {SHARED_TREE.get(name, name): name for name in FAMILY_PRESETS}
+    totals = {}
+    plain_k5, timed = {}, {}
+    t_start = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=4) as pool, tempfile.TemporaryDirectory() as tmp:
+        trees = {src: pool.submit(init_params, presets.PRESETS[src](32), 100 + i)
+                 for i, src in enumerate(sources)}
+        for i, (name, model_type) in enumerate(FAMILY_PRESETS.items()):
+            cfg, src = cfgs[name], SHARED_TREE.get(name, name)
+            t0 = time.perf_counter()
+            tree = perturb_tree(trees[src].result(), 200 + i)
+            wait_s = time.perf_counter() - t0
+            if last_use[src] == name:
+                del trees[src]
+            if tree["lm_head"]["bias"].shape != (cfg.vocab_size,):
+                h = tree["lm_head"]["kernel"].shape[0]
+                head = np.random.default_rng(300 + i).standard_normal((h, cfg.vocab_size),
+                                                                      dtype=np.float32)
+                tree["lm_head"] = {
+                    "kernel": head * np.float32((2.0 / (h + cfg.vocab_size)) ** 0.5),
+                    "bias": np.zeros(cfg.vocab_size, np.float32)}
+            units = "phoneme" if name == "unispeech-large-phoneme" else "word"
+            v = ph_vocab if units == "phoneme" else vocab
+            params = params_from_jax(tree, device=device)
+            n_params = sum(x.numel() for x in tree_leaves(params))
+            print(f"family {name}: {n_params / 1e6:.1f} M parameters (host init waited "
+                  f"{wait_s:.1f} s)")
+            counts, bf16, f32, inputs, audio = run_family(device, card, name, cfg, params,
+                                                          v, units)
+            _add_counts(totals, counts)
+            if name in FORCED_K5_PRESETS:
+                totals["k5"] = totals.get("k5", 0) + forced_k5(name, cfg, bf16, f32, inputs,
+                                                               audio)
+            del f32, params
+            if name in TIMED_PRESETS:
+                reset_launches()
+                timed[name] = time_family(card, name, bf16, v)
+                _add_counts(totals, read_launches())
+            del bf16, inputs, audio
+            torch.cuda.empty_cache()
+            if name != "xlsr-53":
+                _add_counts(totals, run_family_dir(device, card, name, model_type, cfg, tree, v,
+                                                   units, Path(tmp) / name))
+            del tree
+        _add_counts(totals, run_family_cli(device, card, Path(tmp) / "hubert-large-ls960-ft",
+                                           vocab))
+    for hd in (64, 80):
+        plain_k5[hd] = time_flash_plain(device, card, 32, 16, 499, hd)
+    print(f"families phase: {len(FAMILY_PRESETS)} presets in "
+          f"{time.perf_counter() - t_start:.1f} s; launches {totals} {card}")
+    return totals, plain_k5, timed
+
+
+def tree_leaves(tree):
+    """The tensors of a parameter tree."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def _add_counts(totals, counts):
+    for k, n in counts.items():
+        totals[k] = totals.get(k, 0) + n
+
+
 def main() -> int:
     import torch
 
@@ -1907,6 +2454,11 @@ def main() -> int:
     print(f"conformer single entry: a 4-block model directory written through "
           f"params_to_hf_flat_dict (BatchNorm folded back by the loader) aligned every word; "
           f"launches {counts}")
+    # --- the wav2vec2-encoder families, K5 forced on plain attention ------
+    counts, plain_k5, _ = run_families(device, card, vocab)
+    add(counts, "the families phase", "k1")
+    if counts.get("k5", 0) < 1:
+        raise AssertionError(f"the families phase never launched K5: {counts}")
     print(f"launch counts on the paths: {launches}")
     print(f"total smoke time {time.perf_counter() - t_start:.1f} s {card}")
 

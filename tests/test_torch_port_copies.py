@@ -8,7 +8,8 @@ differs. Code is compared after parsing, with docstrings dropped, so the
 copies may word their documentation for the port.
 
 Also: no module of `wav2vec2_tpu_torch/`, and not `chip_smoke.py`, imports
-jax or the JAX package.
+jax, the JAX package, safetensors or transformers (the card's machine has
+none of them).
 """
 
 import ast
@@ -32,6 +33,9 @@ PORT_DIFFERENCES = {
     "data/librispeech.py": [],
     "cli/json_report_formatter.py": [],
     "cli/compare_textgrids.py": [],
+    # the same relative import names the port's own config, whose
+    # from_dict refuses SEW, SEW-D and w2v-BERT (their constructors raise)
+    "models/presets.py": [],
     # the port's loggers live under wav2vec2_tpu_torch, not a child of
     # the JAX package's logger
     "utils/tracing.py": [
@@ -202,4 +206,5 @@ def _imported_roots(path: Path) -> set[str]:
     str(p.relative_to(REPO)) for p in [*(REPO / "wav2vec2_tpu_torch").rglob("*.py"),
                                        REPO / "chip_smoke.py"]))
 def test_port_imports_no_jax(path):
-    assert not _imported_roots(REPO / path) & {"jax", "jaxlib", "wav2vec2_tpu"}
+    assert not _imported_roots(REPO / path) & {"jax", "jaxlib", "wav2vec2_tpu", "safetensors",
+                                                "transformers"}

@@ -9,6 +9,7 @@ forward is held to the log-prob distance gate of bench.py (mean |Δ| to
 the f32 forward ≤ 0.05) on each side instead of to each other.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -153,16 +154,26 @@ def test_bf16_weight_storage_is_exact_under_bf16_compute(models):
 @pytest.mark.parametrize("change", [
     {"model_type": "wavlm"}, {"do_stable_layer_norm": True},
     {"feat_extract_norm": "layer"}, {"add_adapter": True},
+    {"model_type": "sew"}, {"model_type": "sew-d"}, {"model_type": "wav2vec2-bert"},
 ])
 def test_config_refuses_graphs_outside_the_slice(change):
-    with pytest.raises(InvalidInputError):
-        TorchCfg.from_dict({**CONFIG, **change})
+    """SEW, SEW-D and w2v-BERT 2.0 are refused; WavLM, pre-norm, the
+    layer-norm frontend and the conv adapter (refused before the port ran
+    them) parse to the JAX package's field values."""
+    d = {**CONFIG, **change}
+    if change.get("model_type") in ("sew", "sew-d", "wav2vec2-bert"):
+        with pytest.raises(InvalidInputError):
+            TorchCfg.from_dict(d)
+        return
+    got, want = TorchCfg.from_dict(d), JaxCfg.from_dict(d)
+    fields = [f.name for f in dataclasses.fields(got)]
+    assert {n: getattr(got, n) for n in fields} == {n: getattr(want, n) for n in fields}
 
 
 def test_converter_refuses_other_families(models):
     _, _, jp, _ = models
     tree = jax.tree.map(np.asarray, jp)
-    tree["encoder"]["rel_attn_embed"] = np.zeros((4, 2), np.float32)
+    tree["encoder"]["rel_embeddings"] = np.zeros((4, 32), np.float32)  # SEW-D's
     with pytest.raises(RuntimeBackendError):
         torch_params.params_from_jax(tree)
 

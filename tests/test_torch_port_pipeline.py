@@ -308,6 +308,20 @@ for flash in (True, False):
         [rng.normal(size=3000).astype(np.float32)], ["jumps over the dog"],
         audio_multiple=1000)
     assert [x.word for x in out[0].words] == ["JUMPS", "OVER", "THE", "DOG"], out
+import torch
+from wav2vec2_tpu_torch.models.ctc_model import wav2vec2_forward
+from wav2vec2_tpu_torch.models.presets import PRESETS
+assert PRESETS["wavlm-large"]().attention_style == "wavlm"
+for family in ({{"model_type": "wavlm", "do_stable_layer_norm": True,
+                 "feat_extract_norm": "layer", "conv_bias": True}},
+               {{"model_type": "hubert", "add_adapter": True, "num_adapter_layers": 2,
+                 "conv_pos_batch_norm": True}}):
+    fcfg = w.Wav2Vec2ModelConfig.from_dict({{**{CONFIG!r}, **family}})
+    logits = wav2vec2_forward(params_from_jax(init_params(fcfg, 2)),
+                              torch.from_numpy(rng.normal(size=(2, 4000)).astype(np.float32)),
+                              fcfg, audio_lens=torch.tensor([4000, 3000]))
+    assert logits.shape == (2, fcfg.conv_output_length(4000), fcfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
 import json, pathlib, tempfile
 from wav2vec2_tpu_torch.cli.alignment_report import run
 from wav2vec2_tpu_torch.data.flac_encoder import write_flac

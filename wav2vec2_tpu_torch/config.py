@@ -1,12 +1,14 @@
 """Configuration types, carried over from `wav2vec2_tpu.config`.
 
-Only what the port runs: the wav2vec2 CTC model config (group-norm conv
-frontend, post-norm encoder, plain attention) and the wav2vec2-conformer
-one (layer-norm or group-norm frontend, conformer blocks with relative,
-rotary or no position embeddings), the aligner's tunables with the same
-defaults, and the vocab loader. Model types whose graphs the port does not
-run yet are refused when the config is parsed instead of silently running
-the wrong graph.
+Only what the port runs: the CTC model config of the wav2vec2 transformer
+encoder families (wav2vec2 post-norm and pre-norm with a group-norm or
+layer-norm conv frontend, MMS attention adapters, the GLU conv adapter,
+HuBERT, data2vec-audio, WavLM, mHuBERT's pos-conv BatchNorm, UniSpeech and
+UniSpeech-SAT) and of wav2vec2-conformer (relative, rotary or no position
+embeddings), the aligner's tunables with the same defaults, and the vocab
+loader. Model types whose graphs the port does not run yet (SEW, SEW-D,
+w2v-BERT 2.0) are refused when the config is parsed instead of silently
+running the wrong graph.
 """
 
 from __future__ import annotations
@@ -20,9 +22,14 @@ from .errors import InvalidInputError, IoError, JsonError
 
 DEFAULT_SAMPLE_RATE_HZ = 16_000
 
-# config.json model type → the encoder the port runs for it
-_ENCODER_STYLES = {None: "wav2vec2", "wav2vec2": "wav2vec2",
-                   "wav2vec2-conformer": "conformer"}
+# config.json model types the port runs. UniSpeech(-SAT) and HuBERT share
+# wav2vec2's CTC graph (only the checkpoint prefix differs, models/params.py);
+# data2vec-audio and WavLM set the style fields below.
+_MODEL_TYPES = (None, "wav2vec2", "wav2vec2-conformer", "hubert", "data2vec-audio",
+                "wavlm", "unispeech", "unispeech-sat")
+_STYLES = {"encoder_style": ("wav2vec2", "conformer"),
+           "pos_conv_style": ("wav2vec2", "data2vec"),
+           "attention_style": ("wav2vec2", "wavlm")}
 
 
 @dataclass
@@ -57,6 +64,30 @@ class Wav2Vec2ModelConfig:
     dtype: Optional[str] = None
     feat_extract_norm: str = "layer"
     conv_bias: bool = True
+    # HuBERT (HubertConfig.feat_proj_layer_norm): no LayerNorm before the
+    # feature projection when false
+    feat_proj_layer_norm: bool = True
+    # data2vec-audio: the positional embedding is a stack of
+    # num_conv_pos_embeddings grouped convs of kernel conv_pos_kernel_size
+    # (non-affine LayerNorm + GELU each); set from model_type
+    pos_conv_style: str = "wav2vec2"  # "wav2vec2" | "data2vec"
+    conv_pos_kernel_size: int = 19
+    # MMS (Wav2Vec2Config.adapter_attn_dim): per-layer attention adapters
+    adapter_attn_dim: Optional[int] = None
+    # WavLM: gated relative-position-bias attention; set from model_type
+    attention_style: str = "wav2vec2"  # "wav2vec2" | "wavlm"
+    num_buckets: int = 320
+    max_bucket_distance: int = 800
+    # mHuBERT-147 (HubertConfig.conv_pos_batch_norm): inference BatchNorm on
+    # the pos-conv input, folded to a per-channel affine at load
+    conv_pos_batch_norm: bool = False
+    # the GLU conv adapter (Wav2Vec2Config.add_adapter): downsamples the
+    # output frame rate by adapter_stride**num_adapter_layers
+    add_adapter: bool = False
+    adapter_kernel_size: int = 3
+    adapter_stride: int = 2
+    num_adapter_layers: int = 3
+    output_hidden_size: Optional[int] = None
     # "wav2vec2" | "conformer" (set from config.json's model_type)
     encoder_style: str = "wav2vec2"
     # Wav2Vec2-Conformer (Wav2Vec2ConformerConfig): conformer blocks with
@@ -67,13 +98,21 @@ class Wav2Vec2ModelConfig:
     max_source_positions: int = 5000
     conv_depthwise_kernel_size: int = 31
     hidden_act: str = "gelu"
-    # serving-path switch (not a checkpoint field): route the conformer's
-    # attention through the fused kernel (ops/flash_attention.py). Set by
-    # BatchAligner on a CUDA device.
+    # serving-path switch (not a checkpoint field): route attention through
+    # the fused kernel (ops/flash_attention.py) where `use_flash` takes it:
+    # the conformer's rel-pos attention, and any other style (never a WavLM
+    # bias) under WAV2VEC2_FLASH_FORCE=1. Set by BatchAligner on a CUDA
+    # device.
     use_flash_attention: bool = False
 
     @classmethod
     def from_dict(cls, d: dict) -> "Wav2Vec2ModelConfig":
+        model_type = d.get("model_type")
+        if model_type not in _MODEL_TYPES:
+            raise InvalidInputError(
+                f"model_type {model_type!r} is not supported by the PyTorch port "
+                "yet (SEW, SEW-D and wav2vec2-bert are not ported)"
+            )
         required = [
             "hidden_size", "num_hidden_layers", "num_attention_heads",
             "intermediate_size", "conv_dim", "conv_kernel", "conv_stride",
@@ -83,40 +122,43 @@ class Wav2Vec2ModelConfig:
         missing = [k for k in required if k not in d]
         if missing:
             raise JsonError("parse config.json", f"missing fields: {missing}")
-        if d.get("model_type") not in _ENCODER_STYLES:
-            raise InvalidInputError(
-                f"model_type {d.get('model_type')!r} is not supported by the "
-                "PyTorch port yet (wav2vec2 and wav2vec2-conformer only)"
-            )
         kwargs = {k: d[k] for k in required}
         for opt in ["do_stable_layer_norm", "layer_norm_eps", "dtype",
-                    "feat_extract_norm", "conv_bias", "rotary_embedding_base",
+                    "feat_extract_norm", "conv_bias", "feat_proj_layer_norm",
+                    "pos_conv_style", "conv_pos_kernel_size",
+                    "adapter_attn_dim", "attention_style", "num_buckets",
+                    "max_bucket_distance", "conv_pos_batch_norm",
+                    "add_adapter", "adapter_kernel_size", "adapter_stride",
+                    "num_adapter_layers", "output_hidden_size",
+                    "encoder_style", "rotary_embedding_base",
                     "max_source_positions", "conv_depthwise_kernel_size",
                     "hidden_act"]:
             if opt in d and d[opt] is not None:
                 kwargs[opt] = d[opt]
-        kwargs["encoder_style"] = _ENCODER_STYLES[d.get("model_type")]
-        if kwargs["encoder_style"] == "conformer":
+        if model_type == "data2vec-audio":
+            kwargs["pos_conv_style"] = "data2vec"
+        if model_type == "wavlm":
+            kwargs["attention_style"] = "wavlm"
+        if model_type == "wav2vec2-conformer":
+            kwargs["encoder_style"] = "conformer"
             # Wav2Vec2ConformerConfig allows position_embeddings_type=None
             # (position-free attention); normalize to "none"
             kwargs["position_embeddings_type"] = (
                 d.get("position_embeddings_type") or "none"
             )
         cfg = cls(**kwargs)
-        # the port runs the post-norm, group-norm wav2vec2 graph and the
-        # conformer graph (layer-norm or group-norm frontend); no adapter
-        conformer = cfg.encoder_style == "conformer"
-        frontends = ("group", "layer") if conformer else ("group",)
-        if d.get("add_adapter") or cfg.do_stable_layer_norm or (
-            cfg.feat_extract_norm not in frontends
-        ):
+        for field, allowed in _STYLES.items():
+            if getattr(cfg, field) not in allowed:
+                raise InvalidInputError(
+                    f"{field} {getattr(cfg, field)!r} is not supported by the "
+                    f"PyTorch port (expected one of {allowed})"
+                )
+        if cfg.feat_extract_norm not in ("group", "layer"):
             raise InvalidInputError(
-                "the PyTorch port runs only the post-norm, group-norm "
-                "wav2vec2 graph and the wav2vec2-conformer graph so far (no "
-                "stable-layer-norm, no layer-norm frontend outside the "
-                "conformer, no adapter)"
+                f"feat_extract_norm {cfg.feat_extract_norm!r} is not supported "
+                "(expected group/layer)"
             )
-        if conformer and cfg.position_embeddings_type not in (
+        if cfg.encoder_style == "conformer" and cfg.position_embeddings_type not in (
             "relative", "rotary", "none"
         ):
             raise InvalidInputError(
@@ -144,20 +186,25 @@ class Wav2Vec2ModelConfig:
 
     def frame_stride_samples(self) -> int:
         """Input samples per output frame — the chunk-alignment unit of the
-        long-form path (320 for wav2vec2). The JAX package also covers the
-        mel frontend and adapter downsampling; the port refuses both
-        configs, so the conv strides are the whole product."""
+        long-form path (320 for wav2vec2; × adapter_stride**num_adapter_layers
+        with the conv adapter)."""
         stride_samples = 1
         for s in self.conv_stride:
             stride_samples *= s
+        if self.add_adapter:
+            stride_samples *= self.adapter_stride ** self.num_adapter_layers
         return stride_samples
 
     def conv_output_length(self, num_samples: int) -> int:
         """Output frames T for `num_samples` input samples (per conv layer:
-        floor((L - K) / stride) + 1)."""
+        floor((L - K) / stride) + 1; adapter layers (L - 1) // stride + 1,
+        exact for their kernel-3, pad-1 convs)."""
         length = num_samples
         for k, s in zip(self.conv_kernel, self.conv_stride):
             length = (length - k) // s + 1
+        if self.add_adapter:
+            for _ in range(self.num_adapter_layers):
+                length = (length - 1) // self.adapter_stride + 1
         return max(length, 0)
 
 

@@ -3,7 +3,8 @@
 PyTorch counterpart of `wav2vec2_tpu.models.ctc_model` for the conv
 frontend and the wav2vec2 and conformer encoders: audio [B, N] → feature
 extractor [B, C, T] → feature projection [B, T, H] → encoder (by
-`cfg.encoder_style`) → lm_head → logits [B, T, V] in f32.
+`cfg.encoder_style`) → the conv adapter (`add_adapter`) → lm_head →
+logits [B, T, V] in f32.
 
 Precision. The JAX f32 forward runs at HIGHEST matmul precision. On the
 card PyTorch's f32 matmuls are full f32 by default, but cuDNN's f32
@@ -21,7 +22,7 @@ import contextlib
 import torch
 
 from ..config import Wav2Vec2ModelConfig
-from .encoder import conformer_encoder_forward, encoder_forward
+from .encoder import adapter_forward, conformer_encoder_forward, encoder_forward
 from .feature_extractor import feature_extractor_forward, feature_projection_forward
 from .layers import full_f32_precision, linear
 
@@ -49,7 +50,7 @@ def wav2vec2_forward(
         hidden = feature_projection_forward(
             params["feature_projection"], feats.transpose(1, 2), cfg
         )
-        frame_mask = None
+        frame_mask = conv_lens = None
         if audio_lens is not None:
             conv_lens = conv_frame_lengths(cfg, audio_lens)
             frame_mask = (
@@ -59,6 +60,8 @@ def wav2vec2_forward(
         encoder = (conformer_encoder_forward if cfg.encoder_style == "conformer"
                    else encoder_forward)
         hidden = encoder(params["encoder"], hidden, cfg, frame_mask=frame_mask)
+        if cfg.add_adapter:
+            hidden = adapter_forward(params["adapter"], hidden, cfg, frame_lens=conv_lens)
         logits = linear(hidden, params["lm_head"]["kernel"], params["lm_head"]["bias"])
         return logits.float()
 
@@ -66,7 +69,8 @@ def wav2vec2_forward(
 def conv_frame_lengths(
     cfg: Wav2Vec2ModelConfig, audio_lens: torch.Tensor
 ) -> torch.Tensor:
-    """Feature-extractor output lengths — the rate the encoder runs at."""
+    """Feature-extractor output lengths (before the adapter) — the rate the
+    encoder runs at, used for its frame mask."""
     lens = audio_lens
     for k, s in zip(cfg.conv_kernel, cfg.conv_stride):
         lens = torch.div(lens - k, s, rounding_mode="floor") + 1
@@ -74,9 +78,14 @@ def conv_frame_lengths(
 
 
 def frame_lengths(cfg: Wav2Vec2ModelConfig, audio_lens: torch.Tensor) -> torch.Tensor:
-    """Model output frame counts [B] (no adapter in this slice, so equal to
-    the conv lengths)."""
-    return conv_frame_lengths(cfg, audio_lens)
+    """Model output frame counts [B]: the vector form of
+    `Wav2Vec2ModelConfig.conv_output_length`, with the adapter's
+    downsampling."""
+    lens = conv_frame_lengths(cfg, audio_lens)
+    if cfg.add_adapter:
+        for _ in range(cfg.num_adapter_layers):
+            lens = torch.div(lens - 1, cfg.adapter_stride, rounding_mode="floor") + 1
+    return lens
 
 
 def log_softmax_logits(logits: torch.Tensor) -> torch.Tensor:

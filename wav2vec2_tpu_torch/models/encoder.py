@@ -1,26 +1,36 @@
-"""wav2vec2 transformer encoder (post-norm, wav2vec2-base style) and the
+"""The wav2vec2 transformer encoder (its families) and the
 wav2vec2-conformer encoder.
 
 PyTorch counterpart of the wav2vec2 and conformer paths of
-`wav2vec2_tpu.models.encoder`. The wav2vec2 encoder:
+`wav2vec2_tpu.models.encoder`. The wav2vec2 encoder (`encoder_forward`):
 
-- positional conv: grouped Conv1d (kernel num_conv_pos_embeddings, pad K/2,
-  groups num_conv_pos_embedding_groups) with the weight norm folded at load
-  time; an even kernel gives one extra frame, which is dropped; GELU;
-  residual add;
-- encoder LayerNorm after the pos-conv residual and BEFORE the layers;
-- per layer: h = LN1(x + attn(x)); y = LN2(h + FFN(h)).
+- positional embedding: one grouped Conv1d (kernel
+  num_conv_pos_embeddings, pad K/2, groups num_conv_pos_embedding_groups)
+  with the weight norm folded at load time (an even kernel gives one extra
+  frame, which is dropped) and GELU; mHuBERT's folded BatchNorm on its
+  input; or data2vec-audio's stack of grouped convs, each with a non-affine
+  LayerNorm and GELU; residual add;
+- post-norm (wav2vec2-base): the encoder LayerNorm after the pos-conv
+  residual and BEFORE the layers, per layer h = LN1(x + attn(x)),
+  y = LN2(h + FFN(h));
+- pre-norm (`do_stable_layer_norm`): per layer h = x + attn(LN1(x)),
+  y = h + FFN(LN2(h)), and the encoder LayerNorm AFTER the layers;
+- MMS attention adapters (LN → down → ReLU → up) added at the end of each
+  layer; WavLM's gated relative position bias (T5-style buckets of layer
+  0's embedding, gated per layer, head and query).
 
 Its attention is plain `matmul` + softmax, which XLA computed without
-Pallas.
+Pallas; under WAV2VEC2_FLASH_FORCE=1 with `cfg.use_flash_attention` it runs
+the fused kernel K5 instead (never with a WavLM bias), as the JAX package
+does. `adapter_forward` is the GLU conv adapter after the encoder.
 
 The conformer encoder (`conformer_encoder_forward`): no positional conv;
 per block, half-step FFN → self-attention (Transformer-XL relative, rotary
 or no position embeddings) → conv module → half-step FFN → LayerNorm; the
 encoder LayerNorm after the blocks. With `cfg.use_flash_attention` and the
-relative style, attention runs the fused kernel K5
-(`ops.flash_attention`); otherwise the relative position term is the
-exact factorized U·G product.
+relative style (or any style when forced), attention runs the fused
+kernel K5 (`ops.flash_attention`); otherwise the relative position term is
+the exact factorized U·G product.
 
 The layers are stacked on a leading L axis (the JAX layout) and run as a
 Python loop over that axis.
@@ -28,6 +38,7 @@ Python loop over that axis.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -38,23 +49,42 @@ from ..ops import flash_attention as fa
 from .layers import act_fn, gelu, layer_norm, linear
 
 
+def _conv1d(x: torch.Tensor, w: torch.Tensor, padding: int, groups: int = 1,
+            stride: int = 1) -> torch.Tensor:
+    """Conv1d of x [B, C, T] with w [O, C/groups, K] in x's dtype, no bias.
+    oneDNN's CPU bf16 grouped conv returns wrong values (errors of the
+    order of the outputs), so on the CPU the same bf16 operands go through
+    the f32 conv and are rounded once, which is what the GPU conv
+    computes."""
+    w = w.to(x.dtype)
+    if x.device.type == "cpu" and x.dtype != torch.float32:
+        return F.conv1d(x.float(), w.float(), None, stride=stride, padding=padding,
+                        groups=groups).to(x.dtype)
+    return F.conv1d(x, w, None, stride=stride, padding=padding, groups=groups)
+
+
+def _masked(x: torch.Tensor, frame_mask: torch.Tensor | None) -> torch.Tensor:
+    """x [B, T, C] with the frames outside `frame_mask` [B, T] zeroed."""
+    return x if frame_mask is None else x * frame_mask[:, :, None].to(x.dtype)
+
+
 def pos_conv_forward(
-    params: dict, x: torch.Tensor, cfg: Wav2Vec2ModelConfig
+    params: dict, x: torch.Tensor, cfg: Wav2Vec2ModelConfig,
+    frame_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """x [B, T, H] → positional embeddings [B, T, H]."""
+    """x [B, T, H] → positional embeddings [B, T, H].
+
+    With `batch_norm` (mHuBERT-147's conv_pos_batch_norm) the folded
+    inference BatchNorm is applied to the conv input; its shift moves
+    padded frames off zero, so they are re-masked, as the unpadded conv
+    sees its own zero padding there."""
     seq_len = x.shape[1]
     k = cfg.num_conv_pos_embeddings
-    w = params["weight"].to(x.dtype)
-    if x.device.type == "cpu" and x.dtype != torch.float32:
-        # oneDNN's CPU bf16 grouped conv returns wrong values (errors of the
-        # order of the outputs); take the same bf16 operands through the f32
-        # conv and round once, which is what the GPU conv computes
-        h = F.conv1d(x.transpose(1, 2).float(), w.float(), None, padding=k // 2,
-                     groups=cfg.num_conv_pos_embedding_groups).to(x.dtype)
-    else:
-        h = F.conv1d(x.transpose(1, 2), w, None, padding=k // 2,
-                     groups=cfg.num_conv_pos_embedding_groups)
-    h = h.transpose(1, 2)
+    if "batch_norm" in params:
+        bn = params["batch_norm"]
+        x = _masked(x * bn["scale"].to(x.dtype) + bn["shift"].to(x.dtype), frame_mask)
+    h = _conv1d(x.transpose(1, 2), params["weight"], k // 2,
+                cfg.num_conv_pos_embedding_groups).transpose(1, 2)
     if k % 2 == 0:
         # SamePad: an even kernel with pad K/2 gives one extra output
         # position; torch drops the last one
@@ -64,19 +94,102 @@ def pos_conv_forward(
     return gelu(h + params["bias"].to(x.dtype))
 
 
+def pos_conv_stack_forward(
+    params: dict, x: torch.Tensor, cfg: Wav2Vec2ModelConfig,
+    frame_mask: torch.Tensor | None,
+) -> torch.Tensor:
+    """data2vec-audio positional embedding: the stacked grouped convs of
+    `params["layers"]` (kernel cfg.conv_pos_kernel_size), each followed by
+    a non-affine LayerNorm over channels in f32 and GELU. Padded frames are
+    re-zeroed after every layer: the next conv's taps would otherwise read
+    them where the unpadded conv reads zeros."""
+    pad = cfg.conv_pos_kernel_size // 2
+    seq_len = x.shape[1]
+    layers = params["layers"]
+    h = x
+    for i in range(layers["weight"].shape[0]):
+        y = _conv1d(h.transpose(1, 2), layers["weight"][i], pad,
+                    cfg.num_conv_pos_embedding_groups).transpose(1, 2)
+        y = y[:, :seq_len] + layers["bias"][i].to(h.dtype)  # an even kernel gives T + 1
+        y = F.layer_norm(y.float(), (y.shape[-1],), None, None,
+                         cfg.layer_norm_eps).to(h.dtype)
+        h = _masked(gelu(y), frame_mask)
+    return h
+
+
+@functools.lru_cache(maxsize=16)
+def wavlm_offset_buckets(t: int, num_buckets: int, max_distance: int) -> torch.Tensor:
+    """WavLM's T5-style bucket of each key − query offset −(t−1) … t−1
+    (int64, on the host). The log-spaced buckets are computed in f32 in
+    the JAX package's order of operations, log(rel / max_exact) /
+    log(max_distance / max_exact) · (n − max_exact), then truncated: a
+    bucket is a table index, and a different rounding at a boundary would
+    change the bias silently."""
+    rel = torch.arange(-(t - 1), t, dtype=torch.int64)
+    n = num_buckets // 2
+    buckets = (rel > 0).to(torch.int64) * n
+    rel = rel.abs()
+    max_exact = n // 2
+    scaled = (torch.log(rel.clamp(min=1).to(torch.float32) / max_exact)
+              / math.log(max_distance / max_exact) * (n - max_exact))
+    large = (max_exact + scaled.to(torch.int64)).clamp(max=n - 1)
+    return buckets + torch.where(rel < max_exact, rel, large)
+
+
+@functools.lru_cache(maxsize=16)
+def wavlm_buckets(t: int, num_buckets: int, max_distance: int,
+                  device: torch.device) -> torch.Tensor:
+    """The [T, T] bucket table (query i, key j → the bucket of j − i) on
+    `device`, built once per T."""
+    offsets = wavlm_offset_buckets(t, num_buckets, max_distance)
+    pos = torch.arange(t)
+    return offsets[pos[None, :] - pos[:, None] + (t - 1)].to(device)
+
+
+def wavlm_position_bias(
+    rel_attn_embed: torch.Tensor, t: int, num_buckets: int, max_distance: int
+) -> torch.Tensor:
+    """WavLM's shared relative position bias [H, T, T], from layer 0's
+    embedding [num_buckets, H]; computed once per forward, each layer
+    gates it."""
+    buckets = wavlm_buckets(t, num_buckets, max_distance, rel_attn_embed.device)
+    return rel_attn_embed[buckets].permute(2, 0, 1)
+
+
 def _self_attention(
-    p: dict, x: torch.Tensor, mask_bias: torch.Tensor | None, num_heads: int
+    p: dict, x: torch.Tensor, mask_bias: torch.Tensor | None, num_heads: int,
+    position_bias: torch.Tensor | None = None, use_flash: bool = False,
 ) -> torch.Tensor:
     """Multi-head self-attention; q pre-scaled by head_dim**-0.5, additive
     key mask of 0 / -inf.
 
+    WavLM (`position_bias` [H, T, T]): the bias is gated per batch, head and
+    query from the layer input — gates sigmoid(Σ₄ proj) in f32,
+    ga·(gb·const − 1) + 2 — and added to the mask as an f32 [B, H, T, T]
+    term.
+
     At f32 the scores are f32. At bf16 the [B, H, T, T] scores are stored in
     bf16, as the JAX bf16 path stores them (the GEMM accumulates in f32 and
-    rounds once); the softmax takes bf16 in and gives bf16 out, and PyTorch
+    rounds once), and the mask (with a WavLM bias) is added after a cast to
+    bf16; the softmax takes bf16 in and gives bf16 out, and PyTorch
     evaluates it in f32 inside the kernel, where XLA evaluates it on the
-    bf16 values."""
+    bf16 values.
+
+    `use_flash` (the config's switch) with a shape `fa.use_flash` takes —
+    plain attention, so only under WAV2VEC2_FLASH_FORCE=1 — and no WavLM
+    bias runs the fused kernel K5 on the pre-scaled q with scale 1."""
     b, t, h = x.shape
     head_dim = h // num_heads
+
+    if position_bias is not None:
+        g = x.reshape(b, t, num_heads, head_dim).transpose(1, 2)
+        lin = p["gru_rel_pos_linear"]
+        proj = linear(g, lin["kernel"], lin["bias"])
+        gates = torch.sigmoid(proj.reshape(b, num_heads, t, 2, 4).sum(-1).float())
+        ga, gb = gates[..., 0:1], gates[..., 1:2]
+        const = p["gru_rel_pos_const"].reshape(1, num_heads, 1, 1).float()
+        gated_bias = (ga * (gb * const - 1.0) + 2.0) * position_bias[None].float()
+        mask_bias = gated_bias if mask_bias is None else gated_bias + mask_bias
 
     def split_heads(y):
         return y.reshape(b, t, num_heads, head_dim).transpose(1, 2)
@@ -85,11 +198,16 @@ def _self_attention(
     q = split_heads(linear(x, p["q_proj"]["kernel"], p["q_proj"]["bias"]) * scale)
     k = split_heads(linear(x, p["k_proj"]["kernel"], p["k_proj"]["bias"]))
     v = split_heads(linear(x, p["v_proj"]["kernel"], p["v_proj"]["bias"]))
-    scores = torch.matmul(q, k.transpose(-1, -2))
-    if mask_bias is not None:
-        scores = scores + mask_bias.to(scores.dtype)
-    attn = torch.softmax(scores, dim=-1)
-    out = torch.matmul(attn, v).transpose(1, 2).reshape(b, t, h)
+    if use_flash and position_bias is None and fa.use_flash(head_dim, dtype=x.dtype):
+        mb = None if mask_bias is None else mask_bias.reshape(b, t)
+        out = fa.flash_attention(q, k, v, mb, scale=1.0)
+    else:
+        scores = torch.matmul(q, k.transpose(-1, -2))
+        if mask_bias is not None:
+            scores = scores + mask_bias.to(scores.dtype)
+        attn = torch.softmax(scores, dim=-1)
+        out = torch.matmul(attn, v)
+    out = out.transpose(1, 2).reshape(b, t, h)
     return linear(out, p["out_proj"]["kernel"], p["out_proj"]["bias"])
 
 
@@ -99,20 +217,39 @@ def _feed_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
     return linear(up, p["output_dense"]["kernel"], p["output_dense"]["bias"])
 
 
+def _attn_adapter(a: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """MMS attention adapter (Wav2Vec2AttnAdapterLayer): LN → down-proj →
+    ReLU → up-proj."""
+    h = layer_norm(x, a["norm"]["weight"], a["norm"]["bias"], eps)
+    h = torch.relu(linear(h, a["linear_1"]["kernel"], a["linear_1"]["bias"]))
+    return linear(h, a["linear_2"]["kernel"], a["linear_2"]["bias"])
+
+
 def _encoder_layer(
     lp: dict, x: torch.Tensor, mask_bias: torch.Tensor | None,
-    cfg: Wav2Vec2ModelConfig,
+    cfg: Wav2Vec2ModelConfig, position_bias: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Post-norm layer: h = ln1(x + attn(x)); y = ln2(h + ff(h))."""
+    """Pre-norm (do_stable_layer_norm): h = x + attn(ln1(x)); y = h +
+    ff(ln2(h)). Post-norm: h = ln1(x + attn(x)); y = ln2(h + ff(h)). An MMS
+    adapter is added to y."""
     eps = cfg.layer_norm_eps
-    h = layer_norm(
-        x + _self_attention(lp["attention"], x, mask_bias, cfg.num_attention_heads),
-        lp["layer_norm"]["weight"], lp["layer_norm"]["bias"], eps,
-    )
-    return layer_norm(
-        h + _feed_forward(lp["feed_forward"], h),
-        lp["final_layer_norm"]["weight"], lp["final_layer_norm"]["bias"], eps,
-    )
+
+    def attn(y):
+        return _self_attention(lp["attention"], y, mask_bias, cfg.num_attention_heads,
+                               position_bias, cfg.use_flash_attention)
+
+    def ln(name, y):
+        return layer_norm(y, lp[name]["weight"], lp[name]["bias"], eps)
+
+    if cfg.do_stable_layer_norm:
+        h = x + attn(ln("layer_norm", x))
+        y = h + _feed_forward(lp["feed_forward"], ln("final_layer_norm", h))
+    else:
+        h = ln("layer_norm", x + attn(x))
+        y = ln("final_layer_norm", h + _feed_forward(lp["feed_forward"], h))
+    if "adapter_layer" in lp:
+        y = y + _attn_adapter(lp["adapter_layer"], y, eps)
+    return y
 
 
 def _layer_slice(tree, i: int):
@@ -120,6 +257,12 @@ def _layer_slice(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer_slice(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _key_mask_bias(frame_mask: torch.Tensor) -> torch.Tensor:
+    """[B, T] validity → the [B, 1, 1, T] f32 additive key mask (0 / -inf)."""
+    bias = torch.zeros(frame_mask.shape, dtype=torch.float32, device=frame_mask.device)
+    return bias.masked_fill(~frame_mask, float("-inf"))[:, None, None, :]
 
 
 def encoder_forward(
@@ -131,23 +274,71 @@ def encoder_forward(
     """x [B, T, H] → [B, T, H].
 
     `frame_mask` [B, T] (True = valid) zeroes padded frames before the
-    pos-conv, masks attention keys, and re-zeroes padded frames after the
-    encoder LayerNorm, so a padded batch equals the unpadded forward on the
-    valid frames."""
+    positional embedding and masks attention keys; in the post-norm order
+    it re-zeroes padded frames after the encoder LayerNorm too. So a padded
+    batch equals the unpadded forward on the valid frames."""
     mask_bias = None
     if frame_mask is not None:
-        x = x * frame_mask[:, :, None].to(x.dtype)
-        mask_bias = torch.zeros(frame_mask.shape, dtype=torch.float32,
-                                device=x.device)
-        mask_bias = mask_bias.masked_fill(~frame_mask, float("-inf"))
-        mask_bias = mask_bias[:, None, None, :]
-    x = x + pos_conv_forward(params["pos_conv_embed"], x, cfg)
+        x = _masked(x, frame_mask)
+        mask_bias = _key_mask_bias(frame_mask)
+    pos = params["pos_conv_embed"]
+    if "layers" in pos:
+        x = x + pos_conv_stack_forward(pos, x, cfg, frame_mask)
+    else:
+        x = x + pos_conv_forward(pos, x, cfg, frame_mask)
     enc_ln = params["layer_norm"]
-    x = layer_norm(x, enc_ln["weight"], enc_ln["bias"], cfg.layer_norm_eps)
-    if frame_mask is not None:
-        x = x * frame_mask[:, :, None].to(x.dtype)
+    if not cfg.do_stable_layer_norm:
+        x = layer_norm(x, enc_ln["weight"], enc_ln["bias"], cfg.layer_norm_eps)
+        x = _masked(x, frame_mask)
+    position_bias = None
+    if "rel_attn_embed" in params:
+        position_bias = wavlm_position_bias(params["rel_attn_embed"], x.shape[1],
+                                            cfg.num_buckets, cfg.max_bucket_distance)
     for i in range(cfg.num_hidden_layers):
-        x = _encoder_layer(_layer_slice(params["layers"], i), x, mask_bias, cfg)
+        x = _encoder_layer(_layer_slice(params["layers"], i), x, mask_bias, cfg,
+                           position_bias)
+    if cfg.do_stable_layer_norm:
+        x = layer_norm(x, enc_ln["weight"], enc_ln["bias"], cfg.layer_norm_eps)
+    return x
+
+
+def adapter_forward(
+    params: dict,
+    x: torch.Tensor,
+    cfg: Wav2Vec2ModelConfig,
+    frame_lens: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The wav2vec2 conv adapter (Wav2Vec2Adapter, add_adapter=true): an
+    optional projection + LayerNorm (eps 1e-5, torch's default: the adapter
+    does not read layer_norm_eps), then num_adapter_layers convs of kernel
+    adapter_kernel_size, pad 1, stride adapter_stride, each with a GLU over
+    channels. x [B, T, H] → [B, T', O].
+
+    `frame_lens` [B] keeps a padded batch exact: padded frames are
+    re-zeroed before every conv, with the lengths shrinking as the frames
+    do ((L − 1) // stride + 1)."""
+    if "proj" in params:
+        x = linear(x, params["proj"]["kernel"], params["proj"]["bias"])
+        ln = params["proj_layer_norm"]
+        x = layer_norm(x, ln["weight"], ln["bias"], 1e-5)
+
+    def mask(z, lens):
+        valid = torch.arange(z.shape[1], device=z.device)[None, :] < lens[:, None]
+        return _masked(z, valid)
+
+    lens = frame_lens
+    if lens is not None:
+        x = mask(x, lens)
+    convs = params["layers"]
+    stride = cfg.adapter_stride
+    for i in range(convs["weight"].shape[0]):
+        x = _conv1d(x.transpose(1, 2), convs["weight"][i], 1, stride=stride).transpose(1, 2)
+        x = x + convs["bias"][i].to(x.dtype)
+        o = x.shape[-1] // 2
+        x = x[..., :o] * torch.sigmoid(x[..., o:].float()).to(x.dtype)
+        if lens is not None:
+            lens = torch.div(lens - 1, stride, rounding_mode="floor") + 1
+            x = mask(x, lens)
     return x
 
 
@@ -273,19 +464,10 @@ def _conformer_conv_module(
     x = torch.matmul(x, p["pointwise_conv1"]["kernel"].to(x.dtype))
     gate = torch.sigmoid(x[..., h_dim:].float()).to(x.dtype)
     x = x[..., :h_dim] * gate
-    if frame_mask is not None:
-        x = x * frame_mask[:, :, None].to(x.dtype)
+    x = _masked(x, frame_mask)
     k = cfg.conv_depthwise_kernel_size
-    w = p["depthwise_conv"]["weight"].to(x.dtype)  # [H, 1, K]
-    xt = x.transpose(1, 2)
-    if x.device.type == "cpu" and x.dtype != torch.float32:
-        # the CPU's bf16 grouped conv is wrong (see pos_conv_forward): the
-        # same bf16 operands through the f32 conv, rounded once
-        y = F.conv1d(xt.float(), w.float(), None, padding=(k - 1) // 2,
-                     groups=h_dim).to(x.dtype)
-    else:
-        y = F.conv1d(xt, w, None, padding=(k - 1) // 2, groups=h_dim)
-    x = y.transpose(1, 2)
+    x = _conv1d(x.transpose(1, 2), p["depthwise_conv"]["weight"], (k - 1) // 2,
+                h_dim).transpose(1, 2)
     bn = p["batch_norm"]
     x = x * bn["scale"].to(x.dtype) + bn["shift"].to(x.dtype)
     x = act_fn(cfg.hidden_act)(x)
@@ -323,9 +505,8 @@ def _conformer_stack(
     """Mask, position tables computed once, conformer blocks."""
     mask_bias = None
     if frame_mask is not None:
-        x = x * frame_mask[:, :, None].to(x.dtype)
-        mask_bias = torch.zeros(frame_mask.shape, dtype=torch.float32, device=x.device)
-        mask_bias = mask_bias.masked_fill(~frame_mask, float("-inf"))[:, None, None, :]
+        x = _masked(x, frame_mask)
+        mask_bias = _key_mask_bias(frame_mask)
     style = cfg.position_embeddings_type
     if style not in ("relative", "rotary", "none"):
         raise NotImplementedError(

@@ -7,10 +7,12 @@ PyTorch counterpart of `wav2vec2_tpu.models.feature_extractor`:
 - `feat_extract_norm == "group"` (wav2vec2-base): GroupNorm(groups =
   channels) on layer 0 only, with statistics masked to the valid frames of
   each utterance, so a padded batch equals per-utterance execution;
-- `feat_extract_norm == "layer"` (the conformer checkpoints): LayerNorm
-  over channels after every conv (per frame, so padding needs no mask);
+- `feat_extract_norm == "layer"` (the large pre-norm, data2vec and
+  conformer checkpoints): LayerNorm over channels after every conv (per
+  frame, so padding needs no mask);
 - erf-GELU after every conv;
-- projection: LayerNorm(conv_dim[-1]) → Linear(conv_dim[-1] → hidden).
+- projection: LayerNorm(conv_dim[-1]) → Linear(conv_dim[-1] → hidden); the
+  LayerNorm is absent for HuBERT configs with feat_proj_layer_norm=false.
 
 The convs go to `torch.nn.functional.conv1d` (cuDNN on the card), as the
 JAX package left them to XLA.
@@ -73,6 +75,8 @@ def feature_projection_forward(
     params: dict, features: torch.Tensor, cfg: Wav2Vec2ModelConfig
 ) -> torch.Tensor:
     """features [B, T, C_last] → hidden [B, T, H]."""
-    ln = params["layer_norm"]
-    x = layer_norm(features, ln["weight"], ln["bias"], cfg.layer_norm_eps)
+    x = features
+    if "layer_norm" in params:
+        ln = params["layer_norm"]
+        x = layer_norm(x, ln["weight"], ln["bias"], cfg.layer_norm_eps)
     return linear(x, params["projection"]["kernel"], params["projection"]["bias"])

@@ -1,14 +1,17 @@
 """Model parameters: random init, the converter from the JAX pytree, and
-the HF safetensors loader.
+the HF safetensors loader and writer.
 
 The port keeps the JAX package's parameter tree (`wav2vec2_tpu.models.
 params`) as nested dicts of torch tensors: linear kernels stored [in, out],
-conv weights [O, I/G, K], encoder layers stacked on a leading L axis, the
-pos-conv weight norm folded into a plain conv weight, the conformer's
-kernel-1 pointwise convs as [in, out] kernels and its BatchNorm folded to a
-per-channel affine. So the converter from a JAX pytree is a leaf-by-leaf
-copy, and a test can run both packages on the same weights. Two families:
-wav2vec2 (post-norm, group-norm frontend) and wav2vec2-conformer.
+conv weights [O, I/G, K], encoder layers (and data2vec's positional convs,
+and the adapter's convs) stacked on a leading L axis, the pos-conv weight
+norm folded into a plain conv weight, BatchNorms folded to a per-channel
+affine, the conformer's kernel-1 pointwise convs as [in, out] kernels, and
+WavLM's bias embedding lifted from layer 0 to the encoder. So the converter
+from a JAX pytree is a leaf-by-leaf copy, and a test can run both packages
+on the same weights. Two encoders: the wav2vec2 transformer encoder (with
+the HuBERT, data2vec-audio, WavLM, MMS, mHuBERT, UniSpeech(-SAT) and
+conv-adapter variants) and wav2vec2-conformer.
 """
 
 from __future__ import annotations
@@ -26,6 +29,10 @@ from .layers import fold_weight_norm
 _TOP_KEYS = {"feature_extractor", "feature_projection", "encoder", "lm_head"}
 _ENCODER_KEYS = {"pos_conv_embed", "layer_norm", "layers"}
 _LAYER_KEYS = {"attention", "layer_norm", "feed_forward", "final_layer_norm"}
+_ATTENTION_KEYS = ("q_proj", "k_proj", "v_proj", "out_proj")
+_WAVLM_KEYS = {"gru_rel_pos_const", "gru_rel_pos_linear"}
+_POS_CONV_KEYS = ({"weight", "bias"}, {"weight", "bias", "batch_norm"}, {"layers"})
+_ADAPTER_KEYS = ({"layers"}, {"proj", "proj_layer_norm", "layers"})
 _CONFORMER_ENCODER_KEYS = {"layer_norm", "layers"}
 _CONFORMER_LAYER_KEYS = {"ffn1_layer_norm", "ffn1", "self_attn_layer_norm", "self_attn",
                          "conv_module", "ffn2_layer_norm", "ffn2", "final_layer_norm"}
@@ -33,11 +40,18 @@ _ATTENTION_PROJECTIONS = ("linear_q", "linear_k", "linear_v", "linear_out")
 _REL_POS_KEYS = {"linear_pos", "pos_bias_u", "pos_bias_v"}
 _CONV_MODULE_KEYS = {"layer_norm", "pointwise_conv1", "depthwise_conv", "batch_norm",
                      "pointwise_conv2"}
-# subtrees consumed in f32 whatever the compute dtype
-_KEEP_F32_KEYS = {"layer_norm", "final_layer_norm", "ffn1_layer_norm",
-                  "ffn2_layer_norm", "self_attn_layer_norm", "batch_norm"}
+# subtrees consumed in f32 whatever the compute dtype: the norms (the MMS
+# adapter's is `norm`, the conv adapter's `proj_layer_norm`), the folded
+# BatchNorms, and WavLM's bias embedding and gate constant
+_KEEP_F32_KEYS = {"layer_norm", "final_layer_norm", "norm", "ffn1_layer_norm",
+                  "ffn2_layer_norm", "self_attn_layer_norm", "proj_layer_norm",
+                  "batch_norm", "rel_attn_embed", "gru_rel_pos_const"}
 BATCH_NORM_EPS = 1e-5  # torch BatchNorm1d's default, folded in at load
-_HF_PREFIX = {"wav2vec2": "wav2vec2.", "conformer": "wav2vec2_conformer."}
+# config.json model_type → the HF checkpoint's model prefix
+HF_PREFIXES = {"wav2vec2": "wav2vec2.", "wav2vec2-conformer": "wav2vec2_conformer.",
+               "hubert": "hubert.", "data2vec-audio": "data2vec_audio.",
+               "wavlm": "wavlm.", "unispeech": "unispeech.",
+               "unispeech-sat": "unispeech_sat."}
 
 _POS_CONV_ALIASES = {
     "wav2vec2.encoder.pos_conv_embed.conv.parametrizations.weight.original0":
@@ -80,14 +94,22 @@ def init_params(cfg: Wav2Vec2ModelConfig, seed: int) -> dict:
     nh = cfg.num_attention_heads
 
     def enc_layer():
-        return {
+        layer = {
             "attention": {k: dense(h, h)
-                          for k in ("q_proj", "k_proj", "v_proj", "out_proj")},
+                          for k in _ATTENTION_KEYS},
             "layer_norm": ln(h),
             "feed_forward": {"intermediate_dense": dense(h, ffn),
                              "output_dense": dense(ffn, h)},
             "final_layer_norm": ln(h),
         }
+        if cfg.adapter_attn_dim:
+            layer["adapter_layer"] = {"norm": ln(h),
+                                      "linear_1": dense(h, cfg.adapter_attn_dim),
+                                      "linear_2": dense(cfg.adapter_attn_dim, h)}
+        if cfg.attention_style == "wavlm":
+            layer["attention"]["gru_rel_pos_const"] = np.ones((1, nh, 1, 1), np.float32)
+            layer["attention"]["gru_rel_pos_linear"] = dense(h // nh, 8)
+        return layer
 
     def conformer_layer():
         k = cfg.conv_depthwise_kernel_size
@@ -119,21 +141,47 @@ def init_params(cfg: Wav2Vec2ModelConfig, seed: int) -> dict:
     layer = conformer_layer if conformer else enc_layer
     layers = _stack([layer() for _ in range(cfg.num_hidden_layers)])
     # drawn in this order so that a seed gives the weights it gave before
-    # the conformer was added
-    feature_projection = {"layer_norm": ln(cfg.conv_dim[-1]),
-                          "projection": dense(cfg.conv_dim[-1], h)}
+    # the conformer and the other families were added
+    feature_projection = {"projection": dense(cfg.conv_dim[-1], h)}
+    if cfg.feat_proj_layer_norm:
+        feature_projection["layer_norm"] = ln(cfg.conv_dim[-1])
     encoder = {"layer_norm": ln(h), "layers": layers}
-    if not conformer:  # the conformer encoder has no positional conv
+    if cfg.pos_conv_style == "data2vec":
+        n_l, kpos = cfg.num_conv_pos_embeddings, cfg.conv_pos_kernel_size
+        encoder["pos_conv_embed"] = {"layers": {
+            "weight": normal((n_l, h, h // g, kpos), (1.0 / (h // g * kpos)) ** 0.5),
+            "bias": np.zeros((n_l, h), np.float32),
+        }}
+    elif not conformer:  # the conformer encoder has no positional conv
         encoder["pos_conv_embed"] = {
             "weight": normal((h, h // g, kpos), (1.0 / (h // g * kpos)) ** 0.5),
             "bias": np.zeros((h,), np.float32),
         }
-    return {
+        if cfg.conv_pos_batch_norm:
+            encoder["pos_conv_embed"]["batch_norm"] = {
+                "scale": np.ones((h,), np.float32), "shift": np.zeros((h,), np.float32)}
+    out_h = (cfg.output_hidden_size or h) if cfg.add_adapter else h
+    tree = {
         "feature_extractor": {"conv_layers": conv_layers},
         "feature_projection": feature_projection,
         "encoder": encoder,
-        "lm_head": dense(h, cfg.vocab_size),
+        "lm_head": dense(out_h, cfg.vocab_size),
     }
+    if cfg.attention_style == "wavlm":
+        encoder["rel_attn_embed"] = normal((cfg.num_buckets, nh), 0.02)
+    if cfg.add_adapter:
+        k = cfg.adapter_kernel_size
+        adapter = {}
+        if out_h != h:
+            adapter["proj"] = dense(h, out_h)
+            adapter["proj_layer_norm"] = ln(out_h)
+        adapter["layers"] = {
+            "weight": normal((cfg.num_adapter_layers, 2 * out_h, out_h, k),
+                             (1.0 / (out_h * k)) ** 0.5),
+            "bias": np.zeros((cfg.num_adapter_layers, 2 * out_h), np.float32),
+        }
+        tree["adapter"] = adapter
+    return tree
 
 
 def _stack(trees: list[dict]) -> dict:
@@ -151,15 +199,39 @@ def _check_keys(node: dict, expected: set, where: str) -> None:
         )
 
 
+def _check_one_of(node: dict, allowed: tuple[set, ...], where: str) -> None:
+    if set(node) not in allowed:
+        raise RuntimeBackendError(
+            "convert weights",
+            f"{where} has keys {sorted(node)}; the port's graph expects one of "
+            f"{[sorted(a) for a in allowed]}",
+        )
+
+
 def _check_tree(tree: dict) -> None:
-    """Refuse a tree that is neither the wav2vec2 nor the conformer layout
-    (attention adapters, WavLM biases, w2v-BERT blocks, ...): its extra
+    """Refuse a tree that is neither a wav2vec2-encoder nor a conformer
+    layout (SEW-D's DeBERTa layers, w2v-BERT blocks, ...): its extra
     subtrees would otherwise be silently ignored."""
-    _check_keys(tree, _TOP_KEYS, "params")
+    _check_keys(tree, _TOP_KEYS | ({"adapter"} if "adapter" in tree else set()), "params")
+    if "adapter" in tree:
+        _check_one_of(tree["adapter"], _ADAPTER_KEYS, "params['adapter']")
+    _check_one_of(tree["feature_projection"],
+                  ({"projection"}, {"layer_norm", "projection"}), "feature_projection")
     enc = tree["encoder"]
     if "self_attn" not in enc["layers"]:
-        _check_keys(enc, _ENCODER_KEYS, "params['encoder']")
-        _check_keys(enc["layers"], _LAYER_KEYS, "encoder layers")
+        wavlm = "rel_attn_embed" in enc
+        _check_keys(enc, _ENCODER_KEYS | ({"rel_attn_embed"} if wavlm else set()),
+                    "params['encoder']")
+        _check_one_of(enc["pos_conv_embed"], _POS_CONV_KEYS, "pos_conv_embed")
+        layers = enc["layers"]
+        mms = "adapter_layer" in layers
+        _check_keys(layers, _LAYER_KEYS | ({"adapter_layer"} if mms else set()),
+                    "encoder layers")
+        _check_keys(layers["attention"], {*_ATTENTION_KEYS, *(_WAVLM_KEYS if wavlm else ())},
+                    "encoder attention (WavLM's gates come with its rel_attn_embed)")
+        if mms:
+            _check_keys(layers["adapter_layer"], {"norm", "linear_1", "linear_2"},
+                        "adapter_layer")
         return
     _check_keys(enc, _CONFORMER_ENCODER_KEYS, "params['encoder']")
     layers = enc["layers"]
@@ -177,7 +249,7 @@ def params_from_jax(
 ) -> dict:
     """JAX parameter pytree (numpy arrays, or anything `np.asarray` takes)
     → the port's tree of torch tensors on `device`. The key set is checked
-    per family (wav2vec2 or conformer, told apart by the layers' keys):
+    per encoder (wav2vec2 or conformer, told apart by the layers' keys):
     trees of families the port does not run yet are refused."""
     _check_tree(tree)
 
@@ -203,10 +275,11 @@ def params_to_device(params, device: str | torch.device):
 
 def cast_compute_weights_bf16(params: dict) -> dict:
     """Store compute weights (matmul kernels and biases, conv weights) in
-    bf16 and keep the LayerNorm/GroupNorm parameters in f32, as
-    `wav2vec2_tpu.models.quantize.cast_compute_weights_bf16` does. Under
-    bf16 compute every consumption site casts weights to the activation
-    dtype anyway, so this only halves the weight memory."""
+    bf16 and keep the subtrees of `_KEEP_F32_KEYS` (norms, folded
+    BatchNorms, WavLM's f32-consumed bias embedding and gate constant) in
+    f32, as `wav2vec2_tpu.models.quantize.cast_compute_weights_bf16` does.
+    Under bf16 compute every consumption site casts weights to the
+    activation dtype anyway, so this only halves the weight memory."""
 
     def walk(node):
         if isinstance(node, dict):
@@ -220,14 +293,25 @@ def cast_compute_weights_bf16(params: dict) -> dict:
 
 
 def _jax_tree_from_flat_dict(tensors: dict[str, np.ndarray], cfg) -> dict:
-    """HF names → JAX-layout numpy tree (wav2vec2 or conformer graph).
-    Conformer checkpoints name their model `wav2vec2_conformer.`; their
-    unused positional conv weights, if present, are never read."""
+    """HF names → JAX-layout numpy tree (wav2vec2-encoder or conformer
+    graph), as `wav2vec2_tpu.models.params.params_from_flat_dict` builds
+    it. Every family's model prefix (`hubert.`, `wavlm.`, ...) is rewritten
+    to `wav2vec2.` first, then the pos-conv's parametrization names to
+    `weight_g` / `weight_v`. The conformer's unused positional conv
+    weights, if present, are never read. A config-gated piece (the
+    projection LayerNorm, mHuBERT's BatchNorm, the conv adapter) missing
+    from the checkpoint raises; the MMS adapters and WavLM's tensors are
+    read where the checkpoint has them."""
     t = {}
     for name, a in tensors.items():
-        if name.startswith(_HF_PREFIX["conformer"]):
-            name = "wav2vec2." + name[len(_HF_PREFIX["conformer"]):]
+        for prefix in HF_PREFIXES.values():
+            if name.startswith(prefix):
+                name = "wav2vec2." + name[len(prefix):]
+                break
         t[_POS_CONV_ALIASES.get(name, name)] = np.asarray(a)
+
+    def has(name):
+        return name in t
 
     def get(name):
         if name not in t:
@@ -239,6 +323,21 @@ def _jax_tree_from_flat_dict(tensors: dict[str, np.ndarray], cfg) -> dict:
 
     def ln(prefix):
         return {"weight": get(prefix + ".weight"), "bias": get(prefix + ".bias")}
+
+    def batch_norm(prefix):
+        # inference BatchNorm folds to a per-channel affine
+        scale = get(prefix + ".weight") / np.sqrt(get(prefix + ".running_var")
+                                                  + BATCH_NORM_EPS)
+        shift = get(prefix + ".bias") - get(prefix + ".running_mean") * scale
+        return {"scale": scale.astype(np.float32), "shift": shift.astype(np.float32)}
+
+    def stacked(fmt, read):
+        """read(fmt.format(i)) for i = 0, 1, ... while the checkpoint has
+        layer i, stacked on a leading axis."""
+        items = []
+        while has(fmt.format(len(items)) + ".weight"):
+            items.append(read(fmt.format(len(items))))
+        return _stack(items)
 
     conv_layers = []
     for i in range(len(cfg.conv_dim)):
@@ -253,9 +352,9 @@ def _jax_tree_from_flat_dict(tensors: dict[str, np.ndarray], cfg) -> dict:
 
     def enc_layer(i):
         p = f"wav2vec2.encoder.layers.{i}"
-        return {
+        layer = {
             "attention": {k: dense(f"{p}.attention.{k}")
-                          for k in ("q_proj", "k_proj", "v_proj", "out_proj")},
+                          for k in _ATTENTION_KEYS},
             "layer_norm": ln(p + ".layer_norm"),
             "feed_forward": {
                 "intermediate_dense": dense(p + ".feed_forward.intermediate_dense"),
@@ -263,6 +362,16 @@ def _jax_tree_from_flat_dict(tensors: dict[str, np.ndarray], cfg) -> dict:
             },
             "final_layer_norm": ln(p + ".final_layer_norm"),
         }
+        if has(p + ".adapter_layer.norm.weight"):
+            # MMS attention adapter (per-language weights merged at export)
+            a = p + ".adapter_layer"
+            layer["adapter_layer"] = {"norm": ln(a + ".norm"), "linear_1": dense(a + ".linear_1"),
+                                      "linear_2": dense(a + ".linear_2")}
+        if has(p + ".attention.gru_rel_pos_const"):
+            # WavLM's gate parameters, per layer
+            layer["attention"]["gru_rel_pos_const"] = get(p + ".attention.gru_rel_pos_const")
+            layer["attention"]["gru_rel_pos_linear"] = dense(p + ".attention.gru_rel_pos_linear")
+        return layer
 
     def conformer_layer(i):
         p = f"wav2vec2.encoder.layers.{i}"
@@ -274,10 +383,6 @@ def _jax_tree_from_flat_dict(tensors: dict[str, np.ndarray], cfg) -> dict:
             self_attn["pos_bias_u"] = get(p + ".self_attn.pos_bias_u")
             self_attn["pos_bias_v"] = get(p + ".self_attn.pos_bias_v")
         cm = f"{p}.conv_module"
-        # inference BatchNorm folds to a per-channel affine
-        scale = get(cm + ".batch_norm.weight") / np.sqrt(
-            get(cm + ".batch_norm.running_var") + BATCH_NORM_EPS)
-        shift = get(cm + ".batch_norm.bias") - get(cm + ".batch_norm.running_mean") * scale
         return {
             "ffn1_layer_norm": ln(p + ".ffn1_layer_norm"),
             "ffn1": {"intermediate_dense": dense(p + ".ffn1.intermediate_dense"),
@@ -289,8 +394,7 @@ def _jax_tree_from_flat_dict(tensors: dict[str, np.ndarray], cfg) -> dict:
                 # kernel-1 convs [out, in, 1] fold to [in, out] matmul kernels
                 "pointwise_conv1": {"kernel": get(cm + ".pointwise_conv1.weight")[:, :, 0].T},
                 "depthwise_conv": {"weight": get(cm + ".depthwise_conv.weight")},
-                "batch_norm": {"scale": scale.astype(np.float32),
-                               "shift": shift.astype(np.float32)},
+                "batch_norm": batch_norm(cm + ".batch_norm"),
                 "pointwise_conv2": {"kernel": get(cm + ".pointwise_conv2.weight")[:, :, 0].T},
             },
             "ffn2_layer_norm": ln(p + ".ffn2_layer_norm"),
@@ -303,22 +407,51 @@ def _jax_tree_from_flat_dict(tensors: dict[str, np.ndarray], cfg) -> dict:
     layer = conformer_layer if conformer else enc_layer
     encoder = {"layer_norm": ln("wav2vec2.encoder.layer_norm"),
                "layers": _stack([layer(i) for i in range(cfg.num_hidden_layers)])}
-    if not conformer:
-        pos_p = "wav2vec2.encoder.pos_conv_embed.conv"
-        if pos_p + ".weight_v" in t:
-            pos_weight = fold_weight_norm(get(pos_p + ".weight_g"), get(pos_p + ".weight_v"))
+    pos_p = "wav2vec2.encoder.pos_conv_embed"
+    if not conformer and has(pos_p + ".layers.0.conv.weight"):
+        # data2vec-audio: stacked positional convs, no weight norm
+        encoder["pos_conv_embed"] = {"layers": stacked(
+            pos_p + ".layers.{}.conv",
+            lambda c: {"weight": get(c + ".weight"), "bias": get(c + ".bias")})}
+    elif not conformer:
+        if has(pos_p + ".conv.weight_v"):
+            pos_weight = fold_weight_norm(get(pos_p + ".conv.weight_g"),
+                                          get(pos_p + ".conv.weight_v"))
         else:
-            pos_weight = get(pos_p + ".weight")
-        encoder["pos_conv_embed"] = {"weight": pos_weight, "bias": get(pos_p + ".bias")}
-    return {
+            pos_weight = get(pos_p + ".conv.weight")
+        encoder["pos_conv_embed"] = {"weight": pos_weight, "bias": get(pos_p + ".conv.bias")}
+        if cfg.conv_pos_batch_norm:
+            # gated by the config, so that a checkpoint without the stats
+            # fails to load (mHuBERT-147: BatchNorm on the conv input)
+            encoder["pos_conv_embed"]["batch_norm"] = batch_norm(pos_p + ".batch_norm")
+    rel_embed = "wav2vec2.encoder.layers.0.attention.rel_attn_embed.weight"
+    if has(rel_embed):
+        # WavLM: layer 0 owns the shared bias embedding; lifted to the
+        # encoder so the layer stack stays uniform
+        encoder["rel_attn_embed"] = get(rel_embed)
+    feature_projection = {"projection": dense("wav2vec2.feature_projection.projection")}
+    if cfg.feat_proj_layer_norm:
+        feature_projection["layer_norm"] = ln("wav2vec2.feature_projection.layer_norm")
+    tree = {
         "feature_extractor": {"conv_layers": conv_layers},
-        "feature_projection": {
-            "layer_norm": ln("wav2vec2.feature_projection.layer_norm"),
-            "projection": dense("wav2vec2.feature_projection.projection"),
-        },
+        "feature_projection": feature_projection,
         "encoder": encoder,
         "lm_head": dense("lm_head"),
     }
+    if cfg.add_adapter:
+        if not has("wav2vec2.adapter.layers.0.conv.weight"):
+            raise RuntimeBackendError(
+                "load weights", "config has add_adapter=true but the checkpoint "
+                "carries no adapter weights (wav2vec2.adapter.layers.*)")
+        adapter = {}
+        if has("wav2vec2.adapter.proj.weight"):
+            adapter["proj"] = dense("wav2vec2.adapter.proj")
+            adapter["proj_layer_norm"] = ln("wav2vec2.adapter.proj_layer_norm")
+        adapter["layers"] = stacked(
+            "wav2vec2.adapter.layers.{}.conv",
+            lambda c: {"weight": get(c + ".weight"), "bias": get(c + ".bias")})
+        tree["adapter"] = adapter
+    return tree
 
 
 def params_from_flat_dict(
@@ -327,11 +460,11 @@ def params_from_flat_dict(
     device: str | torch.device = "cpu",
     compute_weights_dtype: torch.dtype | None = None,
 ) -> dict:
-    """Port parameters from a flat {hf_name: array} mapping (wav2vec2 or
-    wav2vec2-conformer HF names). Folds the pos-conv weight norm (both
+    """Port parameters from a flat {hf_name: array} mapping (the HF names of
+    every family the port runs). Folds the pos-conv weight norm (both
     `weight_g` layouts, and the newer torch parametrization names) and the
-    conformer's BatchNorm. `compute_weights_dtype=torch.bfloat16` stores the
-    compute weights in bf16."""
+    BatchNorms. `compute_weights_dtype=torch.bfloat16` stores the compute
+    weights in bf16."""
     params = params_from_jax(_jax_tree_from_flat_dict(tensors, cfg), device)
     if compute_weights_dtype == torch.bfloat16:
         params = cast_compute_weights_bf16(params)
@@ -353,17 +486,28 @@ def load_safetensors_params(
     )
 
 
-def params_to_hf_flat_dict(params: dict, cfg: Wav2Vec2ModelConfig) -> dict[str, np.ndarray]:
+def params_to_hf_flat_dict(params: dict, cfg: Wav2Vec2ModelConfig,
+                           model_type: str | None = None) -> dict[str, np.ndarray]:
     """Port parameters (torch tensors or numpy arrays, JAX layout) → flat
-    HF-named f32 arrays. Linear kernels go back to torch's [out, in]. The
-    wav2vec2 pos-conv is written weight-normed (`weight_g` of shape
-    (1, 1, K), `weight_v`), the layout wav2vec2-base checkpoints ship. The
-    conformer's pointwise convs go back to [out, in, 1], and its folded
-    BatchNorm is written with running mean 0 and variance 1 (weight =
-    scale·sqrt(1 + eps), bias = shift), which the loader folds back."""
+    HF-named f32 arrays under `model_type`'s model prefix (`hubert.`,
+    `wavlm.`, ...; by default the one of the config's encoder: `wav2vec2.`,
+    `wav2vec2_conformer.`, `data2vec_audio.` or `wavlm.`). Linear kernels
+    go back to torch's [out, in]. The single pos-conv is written
+    weight-normed (`weight_g` of shape (1, 1, K), `weight_v`), the layout
+    wav2vec2-base checkpoints ship, except under mHuBERT's BatchNorm, where
+    HF keeps a plain conv `weight`; data2vec's stack as plain convs. The
+    conformer's pointwise convs go back to [out, in, 1]. Folded BatchNorms
+    are written with running mean 0 and variance 1 (weight =
+    scale·sqrt(1 + eps), bias = shift), which the loader folds back.
+    WavLM's bias embedding goes back to layer 0's attention."""
     out: dict[str, np.ndarray] = {}
     conformer = cfg.encoder_style == "conformer"
-    model = _HF_PREFIX[cfg.encoder_style]
+    if model_type is None:
+        model_type = ("wav2vec2-conformer" if conformer
+                      else "wavlm" if cfg.attention_style == "wavlm"
+                      else "data2vec-audio" if cfg.pos_conv_style == "data2vec"
+                      else "wav2vec2")
+    model = HF_PREFIXES[model_type]
 
     def arr(x):
         if isinstance(x, torch.Tensor):
@@ -378,6 +522,14 @@ def params_to_hf_flat_dict(params: dict, cfg: Wav2Vec2ModelConfig) -> dict[str, 
         out[prefix + ".weight"] = arr(p["weight"])
         out[prefix + ".bias"] = arr(p["bias"])
 
+    def put_batch_norm(prefix, p):
+        shift = arr(p["shift"])
+        out[prefix + ".weight"] = arr(arr(p["scale"]).astype(np.float64)
+                                      * np.sqrt(1.0 + BATCH_NORM_EPS))
+        out[prefix + ".bias"] = shift
+        out[prefix + ".running_mean"] = np.zeros_like(shift)
+        out[prefix + ".running_var"] = np.ones_like(shift)
+
     def at(tree, i):
         return {n: (at(v, i) if isinstance(v, dict) else v[i]) for n, v in tree.items()}
 
@@ -389,27 +541,48 @@ def params_to_hf_flat_dict(params: dict, cfg: Wav2Vec2ModelConfig) -> dict[str, 
         if "layer_norm" in layer:
             put_ln(p + ".layer_norm", layer["layer_norm"])
     fp = params["feature_projection"]
-    put_ln(f"{model}feature_projection.layer_norm", fp["layer_norm"])
+    if "layer_norm" in fp:
+        put_ln(f"{model}feature_projection.layer_norm", fp["layer_norm"])
     put_dense(f"{model}feature_projection.projection", fp["projection"])
 
     enc = params["encoder"]
-    if not conformer:
-        w = arr(enc["pos_conv_embed"]["weight"])
-        pos_p = "wav2vec2.encoder.pos_conv_embed.conv"
-        out[pos_p + ".weight_g"] = np.sqrt(np.sum(w * w, axis=(0, 1), keepdims=True))
-        out[pos_p + ".weight_v"] = w
-        out[pos_p + ".bias"] = arr(enc["pos_conv_embed"]["bias"])
+    pos, pos_p = enc.get("pos_conv_embed"), f"{model}encoder.pos_conv_embed"
+    if pos is not None and "layers" in pos:
+        for i in range(len(pos["layers"]["weight"])):
+            out[f"{pos_p}.layers.{i}.conv.weight"] = arr(pos["layers"]["weight"][i])
+            out[f"{pos_p}.layers.{i}.conv.bias"] = arr(pos["layers"]["bias"][i])
+    elif pos is not None:
+        w = arr(pos["weight"])
+        if "batch_norm" in pos:
+            out[pos_p + ".conv.weight"] = w
+            put_batch_norm(pos_p + ".batch_norm", pos["batch_norm"])
+        else:
+            out[pos_p + ".conv.weight_g"] = np.sqrt(np.sum(w * w, axis=(0, 1), keepdims=True))
+            out[pos_p + ".conv.weight_v"] = w
+        out[pos_p + ".conv.bias"] = arr(pos["bias"])
     put_ln(f"{model}encoder.layer_norm", enc["layer_norm"])
+    if "rel_attn_embed" in enc:
+        out[f"{model}encoder.layers.0.attention.rel_attn_embed.weight"] = \
+            arr(enc["rel_attn_embed"])
     for i in range(cfg.num_hidden_layers):
         lp = at(enc["layers"], i)
         p = f"{model}encoder.layers.{i}"
         if not conformer:
-            for k in ("q_proj", "k_proj", "v_proj", "out_proj"):
-                put_dense(f"{p}.attention.{k}", lp["attention"][k])
+            att = lp["attention"]
+            for k in _ATTENTION_KEYS:
+                put_dense(f"{p}.attention.{k}", att[k])
+            if "gru_rel_pos_const" in att:
+                out[f"{p}.attention.gru_rel_pos_const"] = arr(att["gru_rel_pos_const"])
+                put_dense(f"{p}.attention.gru_rel_pos_linear", att["gru_rel_pos_linear"])
             for k in ("intermediate_dense", "output_dense"):
                 put_dense(f"{p}.feed_forward.{k}", lp["feed_forward"][k])
             for k in ("layer_norm", "final_layer_norm"):
                 put_ln(f"{p}.{k}", lp[k])
+            if "adapter_layer" in lp:
+                a = lp["adapter_layer"]
+                put_ln(f"{p}.adapter_layer.norm", a["norm"])
+                for k in ("linear_1", "linear_2"):
+                    put_dense(f"{p}.adapter_layer.{k}", a[k])
             continue
         sa = lp["self_attn"]
         for k in _ATTENTION_PROJECTIONS:
@@ -429,10 +602,14 @@ def params_to_hf_flat_dict(params: dict, cfg: Wav2Vec2ModelConfig) -> dict[str, 
         for k in ("pointwise_conv1", "pointwise_conv2"):
             out[f"{cp}.{k}.weight"] = arr(arr(cm[k]["kernel"]).T[:, :, None])
         out[cp + ".depthwise_conv.weight"] = arr(cm["depthwise_conv"]["weight"])
-        scale = arr(cm["batch_norm"]["scale"]).astype(np.float64)
-        out[cp + ".batch_norm.weight"] = arr(scale * np.sqrt(1.0 + BATCH_NORM_EPS))
-        out[cp + ".batch_norm.bias"] = arr(cm["batch_norm"]["shift"])
-        out[cp + ".batch_norm.running_mean"] = np.zeros_like(arr(cm["batch_norm"]["shift"]))
-        out[cp + ".batch_norm.running_var"] = np.ones_like(arr(cm["batch_norm"]["shift"]))
+        put_batch_norm(cp + ".batch_norm", cm["batch_norm"])
+    if "adapter" in params:
+        ad = params["adapter"]
+        if "proj" in ad:
+            put_dense(f"{model}adapter.proj", ad["proj"])
+            put_ln(f"{model}adapter.proj_layer_norm", ad["proj_layer_norm"])
+        for i in range(len(ad["layers"]["weight"])):
+            out[f"{model}adapter.layers.{i}.conv.weight"] = arr(ad["layers"]["weight"][i])
+            out[f"{model}adapter.layers.{i}.conv.bias"] = arr(ad["layers"]["bias"][i])
     put_dense("lm_head", params["lm_head"])
     return out
