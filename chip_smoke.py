@@ -31,17 +31,20 @@ user calls, with random weights from a numpy seed:
   with gates on the stream's order and words, native vs Python grouping
   on every drained batch, batch vs single, the perf run's device memory,
   and each tier it launched against its plain version;
-- the wav2vec2-encoder families: 12 presets (pre-norm lv60 and XLS-R-53,
+- the families: 12 wav2vec2-encoder presets (pre-norm lv60 and XLS-R-53,
   MMS-1b with attention adapters, HuBERT base and large, data2vec-audio,
   WavLM base-plus and large, mHuBERT-147, the conv adapter's 160 ms
-  frames, UniSpeech-SAT, UniSpeech with phoneme units) and the rotary
-  conformer, each at full width and depth through the batch entry at bf16
+  frames, UniSpeech-SAT, UniSpeech with phoneme units), SEW and SEW-D
+  (squeezed encoder, DeBERTa attention), the rotary conformer and w2v-BERT
+  2.0 (log-mel frontend, relative_key conformer, BERT adapter, 40 ms
+  frames), each at full width and depth through the batch entry at bf16
   and f32 with gates (a) K1 == viterbi_numpy, (b) padded == unpadded f32
-  within 1e-4, (c) bf16 vs f32; lv60 and mms-1b timed at 32 × 10 s; K5
-  forced (`WAV2VEC2_FLASH_FORCE=1`) on plain attention at head dims 64 and
-  80 and on rotary attention, timed against SDPA; one 2-layer HF-format
-  directory per family (its own weight prefix) through
-  `ForcedAlignerBuilder`, and the CLI on the hubert-large directory.
+  within 1e-4, (c) bf16 vs f32; lv60, w2v-BERT and mms-1b timed at 32 ×
+  10 s; K5 forced (`WAV2VEC2_FLASH_FORCE=1`) on plain attention at head
+  dims 64 and 80 (SEW's at its pooled length, w2v-BERT's adapter) and on
+  rotary attention, timed against SDPA; one 2-layer HF-format directory
+  per family (its own weight prefix) through `ForcedAlignerBuilder`, and
+  the CLI on the hubert-large directory.
 
 The host grouping runs the native engine throughout
 (`WAV2VEC2_NATIVE_GROUPING=require`): a silent fall-back to Python fails.
@@ -1595,21 +1598,48 @@ def time_flash(device, card, self_attn, b, nh, t, hd):
                 bound_by=bound_by, err=err, f32_ms=f32_ms)
 
 
-def kernel_time_split(fwd):
+def kernel_time_split(fwd, ranges=()):
     """Device time of one call of `fwd` by kernel, from torch.profiler:
-    {group: ms} over K5, GEMMs, convolutions and the rest, the total, and
-    the five longest kernels."""
+    {group: ms} over K5, GEMMs, convolutions and the rest (elementwise and
+    reductions), the total, the five longest kernels, and {label: ms} for
+    each (module, function name, label) of `ranges`: the function runs
+    inside `record_function(label)` for the profiled call only, and its
+    kernels' device time is summed over its calls."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fwd()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fwd()
-        torch.cuda.synchronize()
+    originals = []
+    for module, attr, label in ranges:
+        fn = getattr(module, attr)
+
+        def wrapped(*a, _fn=fn, _label=label, **kw):
+            with record_function(_label):
+                return _fn(*a, **kw)
+
+        setattr(module, attr, wrapped)
+        originals.append((module, attr, fn))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fwd()
+            torch.cuda.synchronize()
+    finally:
+        for module, attr, fn in originals:
+            setattr(module, attr, fn)
+    labels = {label for *_, label in ranges}
+    spans = {}
+    for label in labels:
+        # the CPU-side range sums its kernels; the GPU-side annotation
+        # spans them (used where the first reads 0)
+        events = [e for e in prof.events() if e.name == label]
+        cpu = sum(e.device_time_total for e in events if e.device_type == DeviceType.CPU)
+        gpu = sum(e.device_time_total for e in events if e.device_type == DeviceType.CUDA)
+        spans[label] = (cpu or gpu) / 1e3
     kernels = [(e.key, e.device_time_total / 1e3) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+               if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+               and e.key not in labels]
     groups = {"K5": 0.0, "GEMM": 0.0, "convolution": 0.0, "other": 0.0}
     for name, ms in kernels:
         low = name.lower()
@@ -1619,7 +1649,7 @@ def kernel_time_split(fwd):
                  else "other")
         groups[group] += ms
     top = sorted(kernels, key=lambda kv: -kv[1])[:5]
-    return groups, sum(groups.values()), top
+    return groups, sum(groups.values()), top, spans
 
 
 def conformer_params(cfg, seed):
@@ -1709,7 +1739,7 @@ def run_conformer(device, vocab, card):
                 audio_lens=lens).transpose(1, 2), cfg)
         frontend()
         front_ms = cuda_time_ms(frontend, 3)
-        groups, busy_ms, top = kernel_time_split(lambda: forward(p, True, torch.bfloat16))
+        groups, busy_ms, top, _ = kernel_time_split(lambda: forward(p, True, torch.bfloat16))
     fwd_ms = statistics.median(fwd[True])
     print(f"time: conformer rel-pos large forward {fwd_ms:.3f} ms through K5, "
           f"{statistics.median(fwd[False]):.3f} ms factorized, 32 x 10 s bf16 (CUDA events, "
@@ -1744,6 +1774,8 @@ FAMILY_PRESETS = {
     "mhubert-147": "hubert",
     "wavlm-base-plus": "wavlm",
     "data2vec-audio-base-960h": "data2vec-audio",
+    "sew-base": "sew",
+    "sew-d-base": "sew-d",
     "wav2vec2-large-960h-lv60": "wav2vec2",
     "xlsr-53": "wav2vec2",
     "hubert-large-ls960-ft": "hubert",
@@ -1751,6 +1783,7 @@ FAMILY_PRESETS = {
     "wavlm-large": "wavlm",
     "wav2vec2-large-adapter": "wav2vec2",
     "wav2vec2-conformer-rope-large-960h": "wav2vec2-conformer",
+    "w2v-bert-2.0": "wav2vec2-bert",
     "mms-1b": "wav2vec2",
 }
 # presets whose parameter tree has the shapes of another's (all fields equal
@@ -1761,25 +1794,35 @@ SHARED_TREE = {"hubert-base-ls960": "wav2vec2-base-960h",
                "xlsr-53": "wav2vec2-large-960h-lv60",
                "hubert-large-ls960-ft": "wav2vec2-large-960h-lv60",
                "unispeech-large-phoneme": "wav2vec2-large-960h-lv60"}
-TIMED_PRESETS = ("wav2vec2-large-960h-lv60", "mms-1b")
+TIMED_PRESETS = ("wav2vec2-large-960h-lv60", "w2v-bert-2.0", "mms-1b")
 FORCED_K5_PRESETS = ("wav2vec2-large-960h-lv60", "mms-1b",
-                     "wav2vec2-conformer-rope-large-960h")
+                     "wav2vec2-conformer-rope-large-960h", "sew-base", "w2v-bert-2.0")
 FAMILY_BATCH = 8
 FAMILY_DIR_LAYERS = 2
 FAMILY_CLI_CASES = 8
 # the conv adapter's 160 ms frames hold about 6 words in 10 s of a
-# transcript of the smoke's short words; 20 ms frames take 2 a second
+# transcript of the smoke's short words; 20 ms frames take 2 a second, and
+# frames in between (w2v-BERT's adapter: 40 ms) in proportion
 ADAPTER_WORDS_PER_S, WORDS_PER_S = 0.5, 2.0
 _NORM_KEYS = {"layer_norm", "final_layer_norm", "norm", "proj_layer_norm",
-              "ffn1_layer_norm", "ffn2_layer_norm", "self_attn_layer_norm"}
+              "ffn1_layer_norm", "ffn2_layer_norm", "self_attn_layer_norm", "output_norm",
+              "rel_embeddings_layer_norm", "depthwise_layer_norm", "residual_layer_norm",
+              "ffn_layer_norm"}
+
+
+def family_words_per_s(cfg):
+    """Transcript density that the preset's frames hold: 2 words a second
+    at 20 ms, in proportion to coarser frames, at least 0.5."""
+    return max(ADAPTER_WORDS_PER_S, WORDS_PER_S * 20.0 / cfg.frame_stride_ms(SAMPLE_RATE))
 
 
 def perturb_tree(tree, seed):
     """A copy of the numpy tree with every norm affine, folded BatchNorm,
     WavLM gate constant and bias drawn from `seed` (init_params leaves
     them at 1 or 0, where a wrong transpose or a missed affine would pass
-    unseen) and the conformer's pos_bias_u/v non-zero; the other leaves
-    are shared."""
+    unseen), the conformer's pos_bias_u/v non-zero, and SEW-D's
+    rel_embeddings and w2v-BERT's distance_embedding drawn anew; the other
+    leaves are shared."""
     rng = np.random.default_rng(seed)
 
     def draw(a, one):
@@ -1799,6 +1842,8 @@ def perturb_tree(tree, seed):
                 out[k] = draw(v, True)
             elif k in ("bias", "pos_bias_u", "pos_bias_v"):
                 out[k] = draw(v, False)
+            elif k in ("rel_embeddings", "distance_embedding"):
+                out[k] = np.float32(0.02) * rng.standard_normal(v.shape, dtype=np.float32)
             else:
                 out[k] = v
         return out
@@ -1881,8 +1926,7 @@ def run_family(device, card, name, cfg, params, vocab, units):
     from wav2vec2_tpu_torch.parallel.batching import BatchAligner, _normalize_batch
 
     rng = np.random.default_rng(30)
-    words_per_s = ADAPTER_WORDS_PER_S if cfg.add_adapter else WORDS_PER_S
-    _, seqs, *arrays = family_inputs(rng, vocab, units, words_per_s)
+    _, seqs, *arrays = family_inputs(rng, vocab, units, family_words_per_s(cfg))
     inputs = [torch.from_numpy(a).to(device) for a in arrays]
     aligners = {dtype: BatchAligner(cfg, params, vocab, compute_dtype=dtype, device=device,
                                     normalize_on_device=True, units=units)
@@ -1944,11 +1988,12 @@ def run_family(device, card, name, cfg, params, vocab, units):
 
 
 def forced_k5(name, cfg, bf16, f32, inputs, audio):
-    """WAV2VEC2_FLASH_FORCE=1 on the preset's batch: K5 once per layer in the
-    f32 and the bf16 forward, the f32 forward within 1e-3 relative of the
-    default forward's logits (the conformer's gate), the bf16 log-probs
-    within bench.py's gate of the default f32 ones. Returns the K5
-    launches."""
+    """WAV2VEC2_FLASH_FORCE=1 on the preset's batch: K5 once per layer that
+    takes it (every encoder layer; for w2v-BERT only the adapter's
+    position-free attention, never its relative_key blocks) in the f32 and
+    the bf16 forward, the f32 forward within 1e-3 relative of the default
+    forward's logits (the conformer's gate), the bf16 log-probs within
+    bench.py's gate of the default f32 ones. Returns the K5 launches."""
     import dataclasses
 
     import torch
@@ -1975,15 +2020,19 @@ def forced_k5(name, cfg, bf16, f32, inputs, audio):
         ref = log_softmax_logits(default).cpu().numpy()
         mean_d, p99_d = lp_gate(log_softmax_logits(forced_bf16).cpu().numpy(), ref, t_lens,
                                 f"{name} forced K5 bf16")
-    if n32 != cfg.num_hidden_layers or n16 != cfg.num_hidden_layers:
+    bert = cfg.encoder_style == "conformer_bert"
+    n_layers = cfg.num_adapter_layers if bert else cfg.num_hidden_layers
+    what = "adapter layers" if bert else "layers"
+    if n32 != n_layers or n16 != n_layers:
         raise AssertionError(f"{name} forced: K5 launched {n32} (f32) and {n16} (bf16) times "
-                             f"for {cfg.num_hidden_layers} layers")
+                             f"for {n_layers} {what}")
     if not rel_err <= 1e-3:
         raise AssertionError(f"{name} forced: f32 forward through K5 vs the default: relative "
                              f"error {rel_err} (bound 1e-3)")
+    width = (cfg.output_hidden_size or cfg.hidden_size) if bert else cfg.hidden_size
     print(f"family {name}, WAV2VEC2_FLASH_FORCE=1: K5 {n32} launches in the f32 forward, "
-          f"{n16} in the bf16 one ({cfg.num_hidden_layers} layers, head dim "
-          f"{cfg.hidden_size // cfg.num_attention_heads}); f32 logits vs the default forward "
+          f"{n16} in the bf16 one ({n_layers} {what}, head dim "
+          f"{width // cfg.num_attention_heads}); f32 logits vs the default forward "
           f"relative max error {rel_err:.2e} (bound 1e-3); bf16 log-probs vs default f32 "
           f"mean|Δ|={mean_d:.4f} p99|Δ|={p99_d:.4f}")
     return n32 + n16
@@ -1991,9 +2040,12 @@ def forced_k5(name, cfg, bf16, f32, inputs, audio):
 
 def time_family(card, name, aligner, vocab):
     """The preset at B=32 x 10 s bf16 through `time_batch_path` (3 batches,
-    double-buffered) and its forward alone (CUDA events)."""
+    double-buffered) and its forward alone (CUDA events), split by kernel
+    group; for w2v-BERT also the device time of the mel frontend and of the
+    relative_key terms within it."""
     import torch
 
+    from wav2vec2_tpu_torch.models import encoder, mel
     from wav2vec2_tpu_torch.models.ctc_model import wav2vec2_forward
     from wav2vec2_tpu_torch.parallel.batching import _normalize_batch
 
@@ -2006,7 +2058,12 @@ def time_family(card, name, aligner, vocab):
                                        audio_lens=a_l, compute_dtype=torch.bfloat16)
         fwd()
         fwd_ms = cuda_time_ms(fwd, 3)
-        groups, busy_ms, top = kernel_time_split(fwd)
+        ranges = []
+        if aligner.cfg.frontend_style == "mel":
+            ranges.append((mel, "mel_frontend", "mel frontend"))
+        if aligner.cfg.position_embeddings_type == "relative_key":
+            ranges.append((encoder, "_relative_key_term", "relative_key term"))
+        groups, busy_ms, top, spans = kernel_time_split(fwd, ranges)
     print(f"time: {name} batch path {rtf:.1f}x realtime (3 batches of 32 x 10 s, bf16, "
           f"submit/drain double-buffered, {total_s / 3 * 1e3:.1f} ms wall per batch; host "
           f"waited {wait_ms:.1f} ms, grouped {group_ms:.1f} ms; peak device memory "
@@ -2014,10 +2071,12 @@ def time_family(card, name, aligner, vocab):
     split = ("not measured (torch.profiler saw no CUDA kernel)" if not busy_ms else
              f"device busy {busy_ms:.3f} ms; "
              + ", ".join(f"{g} {ms:.3f} ms" for g, ms in groups.items())
+             + "".join(f"; of it the {label} {ms:.3f} ms" for label, ms in spans.items())
              + "; longest: " + "; ".join(f"{k[:60]} {ms:.3f} ms" for k, ms in top))
     print(f"time: {name} forward by kernel (torch.profiler, one forward, 32 x 10 s bf16): "
           f"{split} {card}")
-    return dict(rtf=rtf, batch_ms=total_s / 3 * 1e3, forward_ms=fwd_ms, peak_gb=peak_gb)
+    return dict(rtf=rtf, batch_ms=total_s / 3 * 1e3, forward_ms=fwd_ms, peak_gb=peak_gb,
+                **spans)
 
 
 def time_flash_plain(device, card, b, nh, t, hd):
@@ -2075,8 +2134,8 @@ def run_family_dir(device, card, name, model_type, cfg, tree, vocab, units, root
     """The preset at full width and 2 layers as an HF-format directory
     (`params_to_hf_flat_dict` under its model_type's prefix), loaded by
     `ForcedAlignerBuilder` at f32: its units on one 8 s request equal
-    `BatchAligner`'s at f32 on the same weights (same units, boundaries
-    within one frame). Returns the launch counts and the directory."""
+    `BatchAligner`'s at f32 on the same weights, every boundary equal.
+    Returns the launch counts."""
     from wav2vec2_tpu_torch import AlignmentInput, ForcedAlignerBuilder, Wav2Vec2Config
     from wav2vec2_tpu_torch.config import Wav2Vec2ModelConfig
     from wav2vec2_tpu_torch.models.params import params_from_jax, params_to_hf_flat_dict
@@ -2099,9 +2158,8 @@ def run_family_dir(device, card, name, model_type, cfg, tree, vocab, units, root
         builder = builder.with_tokenizer(PhonemeTokenizer()).with_word_grouper(PhonemeGrouper())
     aligner = builder.build()
     rng = np.random.default_rng(31)
-    words_per_s = ADAPTER_WORDS_PER_S if cfg.add_adapter else WORDS_PER_S
-    (transcript,), seqs, audio, a_l, _, _ = family_inputs(rng, vocab, units, words_per_s,
-                                                          batch=1, n_pad_s=8.0)
+    (transcript,), seqs, audio, a_l, _, _ = family_inputs(
+        rng, vocab, units, family_words_per_s(cfg), batch=1, n_pad_s=8.0)
     samples = audio[0, : a_l[0]].astype(np.float32) / np.float32(32768)
     reset_launches()
     got = aligner.align(AlignmentInput(SAMPLE_RATE, samples, transcript)).words
@@ -2109,18 +2167,14 @@ def run_family_dir(device, card, name, model_type, cfg, tree, vocab, units, root
                         compute_dtype="float32", device=device, units=units) \
         .align_utterances([samples], [transcript])[0].words
     counts = read_launches()
-    stride_ms = cfg.frame_stride_ms(SAMPLE_RATE)
     check_words(got, seqs[0].normalized_words, f"{name} directory, single entry")
-    if [w.word for w in got] != [w.word for w in want]:
-        raise AssertionError(f"{name} directory: single and batch units differ")
-    exact = sum((a.start_ms, a.end_ms) == (b.start_ms, b.end_ms) for a, b in zip(got, want))
-    if any(max(abs(a.start_ms - b.start_ms), abs(a.end_ms - b.end_ms)) > stride_ms
-           for a, b in zip(got, want)):
-        raise AssertionError(f"{name} directory: single vs batch boundaries beyond one frame")
+    if [(w.word, w.start_ms, w.end_ms) for w in got] != \
+            [(w.word, w.start_ms, w.end_ms) for w in want]:
+        raise AssertionError(f"{name} directory: single and batch units or boundaries differ")
     size_mb = (root / "model.safetensors").stat().st_size / 1e6
     print(f"family {name}: HF-format directory ({model_type}, {FAMILY_DIR_LAYERS} layers, "
-          f"{size_mb:.0f} MB) through ForcedAlignerBuilder at f32: {len(got)} units == "
-          f"BatchAligner's, {exact}/{len(got)} boundaries exact, the rest within one frame; "
+          f"{size_mb:.0f} MB) through ForcedAlignerBuilder at f32: {len(got)} units, every "
+          f"boundary equal to BatchAligner's ({cfg.frame_stride_ms(SAMPLE_RATE):g} ms frames); "
           f"launches { {k: n for k, n in counts.items() if n} } {card}")
     return counts
 
@@ -2164,10 +2218,12 @@ def run_family_cli(device, card, model_dir: Path, vocab):
 
 
 def run_families(device, card, vocab):
-    """The families phase: the 13 presets of FAMILY_PRESETS at full width and
-    depth through the batch entry (gates (a)-(c)); lv60 and mms-1b timed at
-    32 x 10 s bf16; K5 forced on lv60 (head dim 64), mms-1b (80) and the
-    rotary conformer; K5 on forced plain attention timed at hd 64 and 80;
+    """The families phase: the 16 presets of FAMILY_PRESETS at full width and
+    depth through the batch entry (gates (a)-(c)); lv60, w2v-BERT and
+    mms-1b timed at 32 x 10 s bf16; K5 forced on lv60 (head dim 64),
+    mms-1b (80), the rotary conformer, SEW (at the pooled length) and
+    w2v-BERT's adapter (never its relative_key blocks); K5 on forced plain
+    attention timed at hd 64 and 80;
     one HF-format directory (2 layers) per preset but xlsr-53 (lv60's
     family) through `ForcedAlignerBuilder`, and the CLI with the
     hubert-large directory. Weights from `init_params` with a numpy seed,

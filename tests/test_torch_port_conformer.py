@@ -239,12 +239,12 @@ def test_config_parses_the_conformer_fields():
     {"model_type": "wav2vec2", "feat_extract_norm": "layer"},
 ])
 def test_config_refuses_the_unported_families(change):
-    """w2v-BERT, SEW, SEW-D and the relative_key style are refused; the
-    families this port now runs (refused before it ran them) parse to the
-    JAX package's field values."""
+    """The relative_key style is refused by the conformer encoder (only
+    w2v-BERT's runs it); every other family, w2v-BERT, SEW and SEW-D among
+    them (refused before the port ran them), parses to the JAX package's
+    field values."""
     d = {**CONFIG, **change}
-    if change.get("model_type") in ("wav2vec2-bert", "sew", "sew-d") or \
-            change.get("position_embeddings_type") == "relative_key":
+    if change.get("position_embeddings_type") == "relative_key":
         with pytest.raises(InvalidInputError):
             TorchCfg.from_dict(d)
         return

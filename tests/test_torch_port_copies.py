@@ -33,8 +33,6 @@ PORT_DIFFERENCES = {
     "data/librispeech.py": [],
     "cli/json_report_formatter.py": [],
     "cli/compare_textgrids.py": [],
-    # the same relative import names the port's own config, whose
-    # from_dict refuses SEW, SEW-D and w2v-BERT (their constructors raise)
     "models/presets.py": [],
     # the port's loggers live under wav2vec2_tpu_torch, not a child of
     # the JAX package's logger

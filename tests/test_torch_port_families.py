@@ -33,7 +33,6 @@ from wav2vec2_tpu.models import encoder as jax_encoder
 from wav2vec2_tpu.models import presets as jax_presets
 from wav2vec2_tpu.models.params import init_params as jax_init_params
 from wav2vec2_tpu_torch.config import Wav2Vec2ModelConfig as TorchCfg
-from wav2vec2_tpu_torch.errors import InvalidInputError
 from wav2vec2_tpu_torch.models import ctc_model as torch_ctc
 from wav2vec2_tpu_torch.models import encoder as torch_encoder
 from wav2vec2_tpu_torch.models import params as torch_params
@@ -67,9 +66,10 @@ FAMILIES = {
     "unispeech": dict(PRE_NORM, model_type="unispeech"),
     "unispeech-sat": dict(model_type="unispeech-sat"),
 }
-RUNNABLE = [n for n in jax_presets.PRESETS if n not in ("sew-base", "sew-d-base",
-                                                         "w2v-bert-2.0")]
-_NORMS = {"layer_norm", "final_layer_norm", "norm", "proj_layer_norm"}
+_NORMS = {"layer_norm", "final_layer_norm", "norm", "proj_layer_norm", "ffn1_layer_norm",
+          "ffn2_layer_norm", "self_attn_layer_norm", "output_norm",
+          "rel_embeddings_layer_norm", "depthwise_layer_norm", "residual_layer_norm",
+          "ffn_layer_norm"}
 
 
 def perturb(tree, seed):
@@ -162,11 +162,11 @@ def test_padded_batch_equals_unpadded(family):
 
 @pytest.mark.parametrize("name", sorted(jax_presets.PRESETS))
 def test_presets_parse_to_the_jax_configs(name):
+    """Every preset of the JAX package, SEW, SEW-D and w2v-BERT 2.0 among
+    them, builds in the port with the JAX config's field values, frame
+    stride and frame counts."""
     vocab = 392 if name == "unispeech-large-phoneme" else 32
-    if name not in RUNNABLE:
-        with pytest.raises(InvalidInputError):
-            torch_presets.PRESETS[name](vocab)
-        return
+    assert set(torch_presets.PRESETS) == set(jax_presets.PRESETS)
     got, want = torch_presets.PRESETS[name](vocab), jax_presets.PRESETS[name](vocab)
     fields = [f.name for f in dataclasses.fields(got)]
     assert {n: getattr(got, n) for n in fields} == {n: getattr(want, n) for n in fields}

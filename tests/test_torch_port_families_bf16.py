@@ -5,7 +5,8 @@ family's bf16 forward against its f32 forward passes bench.py's log-prob
 gate (mean |Δ| ≤ 0.05, p99 ≤ 0.3 over the valid frames), bf16 weight
 storage is exact under bf16 compute, and the port's bf16 cast stores in
 f32 exactly the leaves the JAX cast (`wav2vec2_tpu.models.quantize.
-cast_compute_weights_bf16`) keeps in f32.
+cast_compute_weights_bf16`) keeps in f32, on these trees and on those of
+SEW, SEW-D and w2v-BERT.
 """
 
 import numpy as np
@@ -20,6 +21,15 @@ from wav2vec2_tpu_torch.models import ctc_model as torch_ctc
 from wav2vec2_tpu_torch.models import params as torch_params
 
 from test_torch_port_families import FAMILIES, SMALL, batch, models, torch_lp
+from test_torch_port_sew import SEW_FAMILIES
+from test_torch_port_w2v_bert import BERT_FAMILIES
+
+# trees that hold the f32 leaves SEW, SEW-D and w2v-BERT bring: SEW-D's
+# `output_norm`, `rel_embeddings` and `rel_embeddings_layer_norm`, w2v-BERT's
+# `depthwise_layer_norm`, the BERT adapter's `residual_layer_norm`,
+# `ffn_layer_norm` and `proj_layer_norm`
+NEW_TREES = {"sew": {**SMALL, **SEW_FAMILIES["sew"]}, "sew-d": {**SMALL, **SEW_FAMILIES["sew-d"]},
+             "w2v-bert": {**BERT_FAMILIES["w2v-bert"], "output_hidden_size": 48}}
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
@@ -53,16 +63,19 @@ def _leaf_dtypes(tree, path=()):
     return {path: str(tree.dtype).replace("torch.", "")}
 
 
-@pytest.mark.parametrize("family", [*sorted(FAMILIES), "mms+wavlm"])
+@pytest.mark.parametrize("family", [*sorted(FAMILIES), "mms+wavlm", *sorted(NEW_TREES)])
 def test_bf16_cast_keeps_the_jax_casts_f32_leaves(family):
     """Leaf by leaf, the port's cast stores in f32 exactly what the JAX
-    cast does. "mms+wavlm" holds every kept subtree of this slice at once:
-    the MMS adapter's `norm`, the conv adapter's `proj_layer_norm`, the
-    pos-conv `batch_norm`, WavLM's `rel_attn_embed` and
-    `gru_rel_pos_const`."""
+    cast does. "mms+wavlm" holds every kept subtree of the encoder
+    families at once: the MMS adapter's `norm`, the conv adapter's
+    `proj_layer_norm`, the pos-conv `batch_norm`, WavLM's `rel_attn_embed`
+    and `gru_rel_pos_const`; the SEW, SEW-D and w2v-BERT trees hold the
+    rest (`NEW_TREES`)."""
     if family == "mms+wavlm":
         d = {**SMALL, **FAMILIES["wavlm-pre-norm"], "adapter_attn_dim": 8,
              "add_adapter": True, "output_hidden_size": 48, "conv_pos_batch_norm": True}
+    elif family in NEW_TREES:
+        d = NEW_TREES[family]
     else:
         d = {**SMALL, **FAMILIES[family]}
     tree = jax.tree.map(np.asarray, jax_init_params(JaxCfg.from_dict(d), jax.random.PRNGKey(0)))

@@ -9,10 +9,14 @@ mHuBERT's BatchNorm running statistics randomized), as
 (the HF config's `to_dict()`) parses to the JAX package's field values,
 and its state dict goes through the port's loader; the port's logits on
 one utterance are within 2e-4 of HF's and of the JAX package's on its own
-loader's tree (`tests/test_model_parity.py`'s tolerance). The port's
-writer, `params_to_hf_flat_dict`, puts each family's own prefix back, and
-its output loads to the same tree. `transformers` is imported by this
-test only, never by the port.
+loader's tree (`tests/test_model_parity.py`'s tolerance). w2v-BERT's HF
+model takes log-mel features: it gets the port's `mel_frontend` output,
+which is held to transformers' SeamlessM4TFeatureExtractor within 5e-4
+(`tests/test_w2v_bert.py`'s bound for the JAX frontend). The port's
+writer, `params_to_hf_flat_dict`, puts each family's own prefix back, its
+output loads to the same tree, and it loads into the `transformers` model
+with no unexpected key and the same logits. `transformers` is imported by
+this test only, never by the port.
 """
 
 import dataclasses
@@ -29,6 +33,7 @@ from wav2vec2_tpu.models import ctc_model as jax_ctc
 from wav2vec2_tpu.models.params import params_from_flat_dict as jax_params_from_flat_dict
 from wav2vec2_tpu_torch.config import Wav2Vec2ModelConfig as TorchCfg
 from wav2vec2_tpu_torch.models import ctc_model as torch_ctc
+from wav2vec2_tpu_torch.models import mel as torch_mel
 from wav2vec2_tpu_torch.models import params as torch_params
 
 HF_ATOL = 2e-4
@@ -66,7 +71,18 @@ HF_FAMILIES = {
                     dict(PRE_NORM, num_buckets=32, max_bucket_distance=100)),
     "unispeech": ("UniSpeechForCTC", "UniSpeechConfig", PRE_NORM),
     "unispeech-sat": ("UniSpeechSatForCTC", "UniSpeechSatConfig", POST_NORM),
+    "sew": ("SEWForCTC", "SEWConfig", dict(POST_NORM, squeeze_factor=2)),
+    "sew-d": ("SEWDForCTC", "SEWDConfig",
+              dict(POST_NORM, squeeze_factor=2, position_buckets=16,
+                   max_position_embeddings=64, layer_norm_eps=1e-7, share_att_key=True)),
+    "w2v-bert": ("Wav2Vec2BertForCTC", "Wav2Vec2BertConfig",
+                 dict(position_embeddings_type="relative_key", left_max_position_embeddings=8,
+                      right_max_position_embeddings=2, conv_depthwise_kernel_size=7,
+                      hidden_act="swish", add_adapter=True, num_adapter_layers=1,
+                      use_intermediate_ffn_before_adapter=True, conformer_conv_dropout=0.0,
+                      activation_dropout=0.0, apply_spec_augment=False)),
 }
+BERT_SAMPLES = 400 + 160 * 101  # 102 mel frames: no odd frame for HF's stacking to pad
 
 
 def _perturb_hf(model, seed):
@@ -75,7 +91,7 @@ def _perturb_hf(model, seed):
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith("bias") or "norm" in name or "gru_rel_pos_const" in name:
+            if name.endswith("bias") or "norm" in name.lower() or "gru_rel_pos_const" in name:
                 p.add_(0.2 * torch.randn(p.shape, generator=gen))
         for name, b in model.named_buffers():
             if name.endswith("running_mean"):
@@ -96,12 +112,23 @@ def hf_model(request):
     return request.param, model, d, state
 
 
-def _audio():
-    return np.random.default_rng(1).normal(size=(1, 3200)).astype(np.float32)
+def _audio(family):
+    n = BERT_SAMPLES if family == "w2v-bert" else 3200
+    return np.random.default_rng(1).normal(size=(1, n)).astype(np.float32)
 
 
 def _torch_logits(tp, tcfg, audio):
     return torch_ctc.wav2vec2_forward(tp, torch.from_numpy(audio), tcfg).numpy()
+
+
+def _hf_logits(model, tcfg, audio):
+    """The HF model's logits; w2v-BERT's on the port's mel features (the
+    frontend is held to HF's extractor on its own below)."""
+    x = torch.from_numpy(audio)
+    if tcfg.frontend_style == "mel":
+        x = torch_mel.mel_frontend(x, tcfg)[0]
+    with torch.no_grad():
+        return model(x).logits.numpy()
 
 
 def test_config_json_parses_to_the_jax_fields(hf_model):
@@ -120,11 +147,10 @@ def test_loader_matches_transformers_and_the_jax_loader(hf_model):
     if tcfg.attention_style == "wavlm":
         assert "rel_attn_embed" in tp["encoder"]
     assert ("layer_norm" in tp["feature_projection"]) == tcfg.feat_proj_layer_norm
-    audio = _audio()
-    with torch.no_grad():
-        ref = model(torch.from_numpy(audio)).logits.numpy()
+    audio = _audio(family)
+    ref = _hf_logits(model, tcfg, audio)
     got = _torch_logits(tp, tcfg, audio)
-    assert got.shape == ref.shape == (1, tcfg.conv_output_length(3200), 32)
+    assert got.shape == ref.shape == (1, tcfg.conv_output_length(audio.shape[1]), 32)
     np.testing.assert_allclose(got, ref, atol=HF_ATOL, rtol=HF_ATOL)
     jp = jax_params_from_flat_dict(state, jcfg)
     want = np.asarray(jax_ctc.wav2vec2_forward(jp, jnp.asarray(audio), jcfg))
@@ -150,3 +176,37 @@ def test_writer_round_trips_under_the_familys_prefix(hf_model):
     assert back.keys() == want.keys()
     for path, a in want.items():
         np.testing.assert_allclose(back[path], a, rtol=1e-6, atol=1e-6, err_msg=str(path))
+
+
+def test_writer_output_loads_into_transformers(hf_model):
+    """The port's writer output loads into a fresh `transformers` model of
+    the family with no unexpected key (missing: only the unused
+    masked_spec_embed and BatchNorm counters), which then gives the
+    original model's logits."""
+    family, model, d, state = hf_model
+    tcfg = TorchCfg.from_dict(d)
+    flat = torch_params.params_to_hf_flat_dict(torch_params.params_from_flat_dict(state, tcfg),
+                                               tcfg, model_type=d["model_type"])
+    cls_name, cfg_name, _ = HF_FAMILIES[family]
+    fresh = getattr(transformers, cls_name)(getattr(transformers, cfg_name)(**d)).eval()
+    missing, unexpected = fresh.load_state_dict(
+        {k: torch.from_numpy(v) for k, v in flat.items()}, strict=False)
+    assert not unexpected, unexpected
+    assert all(k.endswith(("masked_spec_embed", "num_batches_tracked")) for k in missing), missing
+    audio = _audio(family)
+    np.testing.assert_allclose(_hf_logits(fresh, tcfg, audio), _hf_logits(model, tcfg, audio),
+                               atol=HF_ATOL, rtol=HF_ATOL)
+
+
+def test_mel_frontend_matches_the_seamless_extractor():
+    extractor = transformers.SeamlessM4TFeatureExtractor()
+    np.testing.assert_allclose(torch_mel.kaldi_mel_filter_bank(), extractor.mel_filters,
+                               rtol=1e-10, atol=1e-12)
+    audio = (np.random.default_rng(0).normal(size=BERT_SAMPLES) * 0.1).astype(np.float32)
+    want = extractor([audio], sampling_rate=16000, return_tensors="np",
+                     padding=True)["input_features"][0]
+    tcfg = TorchCfg.from_dict({**SMALL, **HF_FAMILIES["w2v-bert"][2],
+                               "model_type": "wav2vec2-bert"})
+    got = torch_mel.mel_frontend(torch.from_numpy(audio)[None], tcfg)[0][0].numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=5e-4)

@@ -155,14 +155,17 @@ def test_bf16_weight_storage_is_exact_under_bf16_compute(models):
     {"model_type": "wavlm"}, {"do_stable_layer_norm": True},
     {"feat_extract_norm": "layer"}, {"add_adapter": True},
     {"model_type": "sew"}, {"model_type": "sew-d"}, {"model_type": "wav2vec2-bert"},
+    {"model_type": "sew-d", "share_att_key": False},
 ])
 def test_config_refuses_graphs_outside_the_slice(change):
-    """SEW, SEW-D and w2v-BERT 2.0 are refused; WavLM, pre-norm, the
-    layer-norm frontend and the conv adapter (refused before the port ran
-    them) parse to the JAX package's field values."""
+    """SEW-D without shared attention keys is refused, as the JAX forward
+    refuses it; every family of the JAX package parses: WavLM, pre-norm,
+    the layer-norm frontend, the conv adapter, SEW, SEW-D and w2v-BERT 2.0
+    (each refused before the port ran it) give the JAX package's field
+    values."""
     d = {**CONFIG, **change}
-    if change.get("model_type") in ("sew", "sew-d", "wav2vec2-bert"):
-        with pytest.raises(InvalidInputError):
+    if change.get("share_att_key") is False:
+        with pytest.raises(InvalidInputError, match="share_att_key"):
             TorchCfg.from_dict(d)
         return
     got, want = TorchCfg.from_dict(d), JaxCfg.from_dict(d)

@@ -12,7 +12,8 @@
   `safetensors` package.
 - The port imports and runs its CPU slice (batch, single-utterance and
   long-form entries, a tiny conformer through the batch entry with the
-  attention kernel switch on and off, and the `alignment_report` CLI in
+  attention kernel switch on and off, forwards of the WavLM, mHuBERT +
+  adapter, SEW, SEW-D and w2v-BERT families, and the `alignment_report` CLI in
   textgrid, json and perf modes on a FLAC dataset) with jax, safetensors
   and transformers made unimportable.
 """
@@ -312,10 +313,17 @@ import torch
 from wav2vec2_tpu_torch.models.ctc_model import wav2vec2_forward
 from wav2vec2_tpu_torch.models.presets import PRESETS
 assert PRESETS["wavlm-large"]().attention_style == "wavlm"
+assert PRESETS["w2v-bert-2.0"]().frontend_style == "mel"
 for family in ({{"model_type": "wavlm", "do_stable_layer_norm": True,
                  "feat_extract_norm": "layer", "conv_bias": True}},
                {{"model_type": "hubert", "add_adapter": True, "num_adapter_layers": 2,
-                 "conv_pos_batch_norm": True}}):
+                 "conv_pos_batch_norm": True}},
+               {{"model_type": "sew"}},
+               {{"model_type": "sew-d", "position_buckets": 8, "max_position_embeddings": 32}},
+               {{"model_type": "wav2vec2-bert", "position_embeddings_type": "relative_key",
+                 "left_max_position_embeddings": 4, "right_max_position_embeddings": 2,
+                 "conv_depthwise_kernel_size": 5, "add_adapter": True,
+                 "use_intermediate_ffn_before_adapter": True}}):
     fcfg = w.Wav2Vec2ModelConfig.from_dict({{**{CONFIG!r}, **family}})
     logits = wav2vec2_forward(params_from_jax(init_params(fcfg, 2)),
                               torch.from_numpy(rng.normal(size=(2, 4000)).astype(np.float32)),

@@ -1,14 +1,16 @@
 """Configuration types, carried over from `wav2vec2_tpu.config`.
 
-Only what the port runs: the CTC model config of the wav2vec2 transformer
-encoder families (wav2vec2 post-norm and pre-norm with a group-norm or
-layer-norm conv frontend, MMS attention adapters, the GLU conv adapter,
-HuBERT, data2vec-audio, WavLM, mHuBERT's pos-conv BatchNorm, UniSpeech and
-UniSpeech-SAT) and of wav2vec2-conformer (relative, rotary or no position
-embeddings), the aligner's tunables with the same defaults, and the vocab
-loader. Model types whose graphs the port does not run yet (SEW, SEW-D,
-w2v-BERT 2.0) are refused when the config is parsed instead of silently
-running the wrong graph.
+The CTC model config of every family the JAX package runs: the wav2vec2
+transformer encoder families (wav2vec2 post-norm and pre-norm with a
+group-norm or layer-norm conv frontend, MMS attention adapters, the GLU
+conv adapter, HuBERT, data2vec-audio, WavLM, mHuBERT's pos-conv BatchNorm,
+UniSpeech and UniSpeech-SAT), SEW and SEW-D (the squeezed encoder, SEW-D
+with DeBERTa disentangled attention), wav2vec2-conformer (relative, rotary
+or no position embeddings) and w2v-BERT 2.0 (log-mel frontend, relative_key
+conformer, BERT adapter); the aligner's tunables with the same defaults, and
+the vocab loader. What the JAX package refuses (SEW-D without shared
+attention keys, a position style outside an encoder's set) is refused when
+the config is parsed instead of silently running the wrong graph.
 """
 
 from __future__ import annotations
@@ -24,12 +26,16 @@ DEFAULT_SAMPLE_RATE_HZ = 16_000
 
 # config.json model types the port runs. UniSpeech(-SAT) and HuBERT share
 # wav2vec2's CTC graph (only the checkpoint prefix differs, models/params.py);
-# data2vec-audio and WavLM set the style fields below.
+# the others set the style fields below.
 _MODEL_TYPES = (None, "wav2vec2", "wav2vec2-conformer", "hubert", "data2vec-audio",
-                "wavlm", "unispeech", "unispeech-sat")
-_STYLES = {"encoder_style": ("wav2vec2", "conformer"),
+                "wavlm", "unispeech", "unispeech-sat", "sew", "sew-d", "wav2vec2-bert")
+_STYLES = {"encoder_style": ("wav2vec2", "conformer", "sew", "conformer_bert"),
            "pos_conv_style": ("wav2vec2", "data2vec"),
-           "attention_style": ("wav2vec2", "wavlm")}
+           "attention_style": ("wav2vec2", "wavlm", "deberta"),
+           "frontend_style": ("conv", "mel")}
+# position styles each conformer encoder runs
+POSITION_STYLES = {"conformer": ("relative", "rotary", "none"),
+                    "conformer_bert": ("relative_key", "relative", "rotary", "none")}
 
 
 @dataclass
@@ -88,8 +94,22 @@ class Wav2Vec2ModelConfig:
     adapter_stride: int = 2
     num_adapter_layers: int = 3
     output_hidden_size: Optional[int] = None
-    # "wav2vec2" | "conformer" (set from config.json's model_type)
+    # "wav2vec2" | "conformer" | "sew" | "conformer_bert" (set from
+    # config.json's model_type)
     encoder_style: str = "wav2vec2"
+    # SEW / SEW-D (SEWConfig.squeeze_factor): the encoder runs at a
+    # squeeze_factor-pooled frame rate and an upsampler restores the conv
+    # rate
+    squeeze_factor: int = 1
+    # SEW-D (SEWDConfig): DeBERTa-v2 attention knobs. The encoder's
+    # layer_norm_eps is 1e-7 while the feature path keeps its own epsilon
+    # (None = layer_norm_eps)
+    feature_layer_norm_eps: Optional[float] = None
+    position_buckets: int = 256
+    max_position_embeddings: int = 512
+    share_att_key: bool = True
+    pos_att_type: tuple = ("p2c", "c2p")
+    norm_rel_ebd: str = "layer_norm"
     # Wav2Vec2-Conformer (Wav2Vec2ConformerConfig): conformer blocks with
     # Transformer-XL relative, rotary or no position embeddings; hidden_act
     # is the FFN and conv-module activation (released checkpoints: "swish")
@@ -98,11 +118,20 @@ class Wav2Vec2ModelConfig:
     max_source_positions: int = 5000
     conv_depthwise_kernel_size: int = 31
     hidden_act: str = "gelu"
+    # w2v-BERT 2.0 (Wav2Vec2BertConfig): the log-mel frontend (models/mel.py)
+    # in place of the conv stack, relative_key attention over clamped
+    # distances, an optional intermediate FFN and the BERT adapter
+    frontend_style: str = "conv"  # "conv" | "mel"
+    feature_projection_input_dim: int = 160
+    left_max_position_embeddings: int = 64
+    right_max_position_embeddings: int = 8
+    use_intermediate_ffn_before_adapter: bool = False
+    adapter_act: str = "relu"
     # serving-path switch (not a checkpoint field): route attention through
     # the fused kernel (ops/flash_attention.py) where `use_flash` takes it:
-    # the conformer's rel-pos attention, and any other style (never a WavLM
-    # bias) under WAV2VEC2_FLASH_FORCE=1. Set by BatchAligner on a CUDA
-    # device.
+    # the conformer's rel-pos attention, and any other style under
+    # WAV2VEC2_FLASH_FORCE=1 (never a WavLM bias, SEW-D's disentangled
+    # attention or relative_key). Set by BatchAligner on a CUDA device.
     use_flash_attention: bool = False
 
     @classmethod
@@ -110,9 +139,14 @@ class Wav2Vec2ModelConfig:
         model_type = d.get("model_type")
         if model_type not in _MODEL_TYPES:
             raise InvalidInputError(
-                f"model_type {model_type!r} is not supported by the PyTorch port "
-                "yet (SEW, SEW-D and wav2vec2-bert are not ported)"
+                f"model_type {model_type!r} is not supported (expected one of "
+                f"{[t for t in _MODEL_TYPES if t]})"
             )
+        if model_type == "wav2vec2-bert":
+            # the mel frontend has no conv stack: Wav2Vec2BertConfig ships
+            # none of the conv fields
+            d = {"conv_dim": [], "conv_kernel": [], "conv_stride": [],
+                 "num_conv_pos_embeddings": 0, "num_conv_pos_embedding_groups": 1, **d}
         required = [
             "hidden_size", "num_hidden_layers", "num_attention_heads",
             "intermediate_size", "conv_dim", "conv_kernel", "conv_stride",
@@ -130,11 +164,17 @@ class Wav2Vec2ModelConfig:
                     "max_bucket_distance", "conv_pos_batch_norm",
                     "add_adapter", "adapter_kernel_size", "adapter_stride",
                     "num_adapter_layers", "output_hidden_size",
-                    "encoder_style", "rotary_embedding_base",
+                    "encoder_style", "squeeze_factor", "feature_layer_norm_eps",
+                    "position_buckets", "max_position_embeddings", "share_att_key",
+                    "norm_rel_ebd", "rotary_embedding_base",
                     "max_source_positions", "conv_depthwise_kernel_size",
-                    "hidden_act"]:
+                    "hidden_act", "feature_projection_input_dim",
+                    "left_max_position_embeddings", "right_max_position_embeddings",
+                    "use_intermediate_ffn_before_adapter", "adapter_act"]:
             if opt in d and d[opt] is not None:
                 kwargs[opt] = d[opt]
+        if d.get("pos_att_type") is not None:
+            kwargs["pos_att_type"] = tuple(d["pos_att_type"])
         if model_type == "data2vec-audio":
             kwargs["pos_conv_style"] = "data2vec"
         if model_type == "wavlm":
@@ -146,6 +186,24 @@ class Wav2Vec2ModelConfig:
             kwargs["position_embeddings_type"] = (
                 d.get("position_embeddings_type") or "none"
             )
+        if model_type in ("sew", "sew-d"):
+            kwargs["encoder_style"] = "sew"
+            kwargs.setdefault("squeeze_factor", 2)
+        if model_type == "sew-d":
+            kwargs["attention_style"] = "deberta"
+            # SEWDConfig's feature-path norms keep their own epsilon
+            kwargs.setdefault("feature_layer_norm_eps", 1e-5)
+        if model_type == "wav2vec2-bert":
+            kwargs["encoder_style"] = "conformer_bert"
+            kwargs["frontend_style"] = "mel"
+            kwargs["position_embeddings_type"] = (
+                d.get("position_embeddings_type") or "none"
+            )
+            kwargs.setdefault("hidden_act", "swish")
+            # Wav2Vec2BertConfig's defaults that differ from wav2vec2's
+            kwargs.setdefault("num_adapter_layers", 1)
+            if kwargs.get("output_hidden_size") is None:
+                kwargs["output_hidden_size"] = d["hidden_size"]
         cfg = cls(**kwargs)
         for field, allowed in _STYLES.items():
             if getattr(cfg, field) not in allowed:
@@ -158,12 +216,18 @@ class Wav2Vec2ModelConfig:
                 f"feat_extract_norm {cfg.feat_extract_norm!r} is not supported "
                 "(expected group/layer)"
             )
-        if cfg.encoder_style == "conformer" and cfg.position_embeddings_type not in (
-            "relative", "rotary", "none"
-        ):
+        allowed = POSITION_STYLES.get(cfg.encoder_style)
+        if allowed and cfg.position_embeddings_type not in allowed:
             raise InvalidInputError(
                 f"position_embeddings_type {cfg.position_embeddings_type!r} "
-                "is not supported (expected relative/rotary/none)"
+                f"is not supported by the {cfg.encoder_style} encoder "
+                f"(expected {'/'.join(allowed)})"
+            )
+        if cfg.attention_style == "deberta" and not cfg.share_att_key:
+            raise InvalidInputError(
+                "SEW-D with share_att_key=false (separate pos_key/pos_query "
+                "projections) is not supported; all released SEW-D checkpoints "
+                "share the attention keys"
             )
         return cfg
 
@@ -180,31 +244,46 @@ class Wav2Vec2ModelConfig:
         return cls.from_dict(d)
 
     def frame_stride_ms(self, sample_rate: int) -> float:
-        """Frame stride in ms = product(conv_stride) / sample_rate * 1000
-        (20 ms for wav2vec2 at 16 kHz)."""
+        """Frame stride in ms = frame_stride_samples() / sample_rate * 1000
+        (20 ms for wav2vec2 and the mel frontend at 16 kHz; SEW's squeeze
+        and upsample cancel)."""
         return self.frame_stride_samples() / sample_rate * 1000.0
 
     def frame_stride_samples(self) -> int:
         """Input samples per output frame — the chunk-alignment unit of the
-        long-form path (320 for wav2vec2; × adapter_stride**num_adapter_layers
-        with the conv adapter)."""
-        stride_samples = 1
-        for s in self.conv_stride:
-            stride_samples *= s
+        long-form path (320 for wav2vec2, and for the mel frontend's
+        160-sample hops stacked by 2; × adapter_stride**num_adapter_layers
+        with an adapter)."""
+        if self.frontend_style == "mel":
+            stride_samples = 160 * 2
+        else:
+            stride_samples = 1
+            for s in self.conv_stride:
+                stride_samples *= s
         if self.add_adapter:
             stride_samples *= self.adapter_stride ** self.num_adapter_layers
         return stride_samples
 
     def conv_output_length(self, num_samples: int) -> int:
         """Output frames T for `num_samples` input samples (per conv layer:
-        floor((L - K) / stride) + 1; adapter layers (L - 1) // stride + 1,
-        exact for their kernel-3, pad-1 convs)."""
-        length = num_samples
-        for k, s in zip(self.conv_kernel, self.conv_stride):
-            length = (length - k) // s + 1
+        floor((L - K) / stride) + 1; the mel frontend's 25 ms / 10 ms frames
+        stacked by 2; conv adapter layers (L - 1) // stride + 1, exact for
+        their kernel-3, pad-1 convs; the BERT adapter's layers
+        (L + 2·(stride // 2) - K) // stride + 1)."""
+        mel = self.frontend_style == "mel"
+        if mel:
+            length = (1 + (num_samples - 400) // 160) // 2 if num_samples >= 400 else 0
+        else:
+            length = num_samples
+            for k, s in zip(self.conv_kernel, self.conv_stride):
+                length = (length - k) // s + 1
         if self.add_adapter:
             for _ in range(self.num_adapter_layers):
-                length = (length - 1) // self.adapter_stride + 1
+                if mel:
+                    length = (length + 2 * (self.adapter_stride // 2)
+                              - self.adapter_kernel_size) // self.adapter_stride + 1
+                else:
+                    length = (length - 1) // self.adapter_stride + 1
         return max(length, 0)
 
 

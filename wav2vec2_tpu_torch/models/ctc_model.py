@@ -1,10 +1,11 @@
 """Wav2Vec2ForCTC: the full acoustic model graph.
 
-PyTorch counterpart of `wav2vec2_tpu.models.ctc_model` for the conv
-frontend and the wav2vec2 and conformer encoders: audio [B, N] → feature
-extractor [B, C, T] → feature projection [B, T, H] → encoder (by
-`cfg.encoder_style`) → the conv adapter (`add_adapter`) → lm_head →
-logits [B, T, V] in f32.
+PyTorch counterpart of `wav2vec2_tpu.models.ctc_model`: audio [B, N] →
+the conv feature extractor [B, C, T] or w2v-BERT's log-mel frontend
+[B, T, 160] (`models/mel.py`) → feature projection [B, T, H] → the encoder
+of `cfg.encoder_style` (wav2vec2's, SEW's squeezed one, the conformer or
+w2v-BERT's conformer) → w2v-BERT's intermediate FFN → the conv adapter or
+the BERT adapter (`add_adapter`) → lm_head → logits [B, T, V] in f32.
 
 Precision. The JAX f32 forward runs at HIGHEST matmul precision. On the
 card PyTorch's f32 matmuls are full f32 by default, but cuDNN's f32
@@ -22,9 +23,21 @@ import contextlib
 import torch
 
 from ..config import Wav2Vec2ModelConfig
-from .encoder import adapter_forward, conformer_encoder_forward, encoder_forward
+from . import mel
+from .encoder import (
+    adapter_forward,
+    bert_adapter_forward,
+    conformer_bert_encoder_forward,
+    conformer_encoder_forward,
+    encoder_forward,
+    sew_encoder_forward,
+)
 from .feature_extractor import feature_extractor_forward, feature_projection_forward
 from .layers import full_f32_precision, linear
+
+_ENCODERS = {"wav2vec2": encoder_forward, "sew": sew_encoder_forward,
+             "conformer": conformer_encoder_forward,
+             "conformer_bert": conformer_bert_encoder_forward}
 
 
 def wav2vec2_forward(
@@ -44,12 +57,14 @@ def wav2vec2_forward(
     )
     with precision:
         x = audio.to(compute_dtype)
-        feats = feature_extractor_forward(
-            params["feature_extractor"], x, cfg, audio_lens=audio_lens
-        )
-        hidden = feature_projection_forward(
-            params["feature_projection"], feats.transpose(1, 2), cfg
-        )
+        if cfg.frontend_style == "mel":
+            feats, _ = mel.mel_frontend(x, cfg, audio_lens=audio_lens)
+            feats = feats.to(compute_dtype)
+        else:
+            feats = feature_extractor_forward(
+                params["feature_extractor"], x, cfg, audio_lens=audio_lens
+            ).transpose(1, 2)
+        hidden = feature_projection_forward(params["feature_projection"], feats, cfg)
         frame_mask = conv_lens = None
         if audio_lens is not None:
             conv_lens = conv_frame_lengths(cfg, audio_lens)
@@ -57,10 +72,19 @@ def wav2vec2_forward(
                 torch.arange(hidden.shape[1], device=hidden.device)[None, :]
                 < conv_lens[:, None]
             )
-        encoder = (conformer_encoder_forward if cfg.encoder_style == "conformer"
-                   else encoder_forward)
-        hidden = encoder(params["encoder"], hidden, cfg, frame_mask=frame_mask)
-        if cfg.add_adapter:
+        hidden = _ENCODERS[cfg.encoder_style](params["encoder"], hidden, cfg,
+                                              frame_mask=frame_mask)
+        if "intermediate_ffn" in params:
+            # w2v-BERT's use_intermediate_ffn_before_adapter: relu, half step
+            p = params["intermediate_ffn"]
+            up = torch.relu(linear(hidden, p["intermediate_dense"]["kernel"],
+                                   p["intermediate_dense"]["bias"]))
+            hidden = hidden + 0.5 * linear(up, p["output_dense"]["kernel"],
+                                           p["output_dense"]["bias"])
+        if cfg.add_adapter and cfg.encoder_style == "conformer_bert":
+            hidden, _ = bert_adapter_forward(params["adapter"], hidden, cfg,
+                                             frame_lens=conv_lens)
+        elif cfg.add_adapter:
             hidden = adapter_forward(params["adapter"], hidden, cfg, frame_lens=conv_lens)
         logits = linear(hidden, params["lm_head"]["kernel"], params["lm_head"]["bias"])
         return logits.float()
@@ -70,7 +94,11 @@ def conv_frame_lengths(
     cfg: Wav2Vec2ModelConfig, audio_lens: torch.Tensor
 ) -> torch.Tensor:
     """Feature-extractor output lengths (before the adapter) — the rate the
-    encoder runs at, used for its frame mask."""
+    encoder runs at, used for its frame mask; the mel frontend's stacked
+    frames (1 + (N − 400) // 160) // 2."""
+    if cfg.frontend_style == "mel":
+        lens = torch.clamp(1 + torch.div(audio_lens - 400, 160, rounding_mode="floor"), min=0)
+        return torch.div(lens, 2, rounding_mode="floor")
     lens = audio_lens
     for k, s in zip(cfg.conv_kernel, cfg.conv_stride):
         lens = torch.div(lens - k, s, rounding_mode="floor") + 1
@@ -84,7 +112,12 @@ def frame_lengths(cfg: Wav2Vec2ModelConfig, audio_lens: torch.Tensor) -> torch.T
     lens = conv_frame_lengths(cfg, audio_lens)
     if cfg.add_adapter:
         for _ in range(cfg.num_adapter_layers):
-            lens = torch.div(lens - 1, cfg.adapter_stride, rounding_mode="floor") + 1
+            if cfg.frontend_style == "mel":
+                # the BERT adapter's convs: pad stride // 2, kernel K
+                lens = torch.div(lens + 2 * (cfg.adapter_stride // 2) - cfg.adapter_kernel_size,
+                                 cfg.adapter_stride, rounding_mode="floor") + 1
+            else:
+                lens = torch.div(lens - 1, cfg.adapter_stride, rounding_mode="floor") + 1
     return lens
 
 

@@ -12,7 +12,9 @@ PyTorch counterpart of `wav2vec2_tpu.models.feature_extractor`:
   frame, so padding needs no mask);
 - erf-GELU after every conv;
 - projection: LayerNorm(conv_dim[-1]) → Linear(conv_dim[-1] → hidden); the
-  LayerNorm is absent for HuBERT configs with feat_proj_layer_norm=false.
+  LayerNorm is absent for HuBERT configs with feat_proj_layer_norm=false,
+  the Linear for SEW with conv_dim[-1] == hidden_size; SEW-D's frontend
+  norms use `feature_layer_norm_eps` (the encoder's epsilon is 1e-7).
 
 The convs go to `torch.nn.functional.conv1d` (cuDNN on the card), as the
 JAX package left them to XLA.
@@ -39,9 +41,9 @@ def feature_extractor_forward(
     frontend normalizes each frame alone and needs no mask)."""
     x = audio[:, None, :]
     lens = audio_lens
-    # one epsilon for the frontend and the encoder (the JAX package's
-    # separate feature epsilon belongs to SEW-D, which the port refuses)
-    eps = cfg.layer_norm_eps
+    # SEW-D keeps its feature-path norms at feature_layer_norm_eps while its
+    # encoder runs at 1e-7; every other family has one epsilon for both
+    eps = cfg.feature_layer_norm_eps or cfg.layer_norm_eps
     for i, (out_c, k, s) in enumerate(
         zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride)
     ):
@@ -74,9 +76,14 @@ def feature_extractor_forward(
 def feature_projection_forward(
     params: dict, features: torch.Tensor, cfg: Wav2Vec2ModelConfig
 ) -> torch.Tensor:
-    """features [B, T, C_last] → hidden [B, T, H]."""
+    """features [B, T, C_last] → hidden [B, T, H], normed at
+    `feature_layer_norm_eps` where it is set; no projection where the tree
+    has none (SEW with conv_dim[-1] == hidden_size)."""
     x = features
+    eps = cfg.feature_layer_norm_eps or cfg.layer_norm_eps
     if "layer_norm" in params:
         ln = params["layer_norm"]
-        x = layer_norm(x, ln["weight"], ln["bias"], cfg.layer_norm_eps)
-    return linear(x, params["projection"]["kernel"], params["projection"]["bias"])
+        x = layer_norm(x, ln["weight"], ln["bias"], eps)
+    if "projection" in params:
+        x = linear(x, params["projection"]["kernel"], params["projection"]["bias"])
+    return x
