@@ -44,7 +44,33 @@ user calls, with random weights from a numpy seed:
   dims 64 and 80 (SEW's at its pooled length, w2v-BERT's adapter) and on
   rotary attention, timed against SDPA; one 2-layer HF-format directory
   per family (its own weight prefix) through `ForcedAlignerBuilder`, and
-  the CLI on the hubert-large directory.
+  the CLI on the hubert-large directory;
+- the serving slice, at the full width and depth of wav2vec2-base with
+  random weights: the daemon (`serve.build_service_from_model_dir` on a
+  model directory written by the port's writer, bf16, `warmup_aligner` at
+  4 and 8 s, an `AlignHTTPServer` on 127.0.0.1:0): 16 client threads send
+  96 /align requests (2-12 s, 2 words a second, pcm16 and float lists,
+  some as srt/vtt) while 4 /stream sessions push 60 s each in 0.32 s
+  pieces, with gates (s1) all 200 with their words in order, monotone and
+  inside the audio, (s2) /stats counts 96 aligned with batches larger than
+  1, (s3) 16 requests sent together to an f32 service within one frame of
+  the same utterance aligned alone and >= 99% exact, (s4) in a burst only the request whose
+  transcript cannot fit gets 400, (s5) K1 launched resident, and each
+  stream's flush equal to the same stream run alone (words, boundaries
+  within one frame); then `--quantize-int8` on 8 requests; `OnlineAligner`
+  on 60 s with 120 words at bf16 and f32 with gates (o1) the emitted words
+  a prefix of the flush, (o2) 0.1 s and 1.7 s pieces give the same flush,
+  (o3) f32 with normalize="none" gives `align_longform`'s words, (o4) each
+  window's f32 log-probs within 1e-4 of the batch forward; int8 serving
+  (`BatchAligner(quantize_int8=True)`) against bf16 on 32 x 10 s with
+  gates (i1) `linear_int8` at [B·T, 768] x [768, 3072] and back: int32
+  accumulators equal to an f64 product, the output bit-equal to the CPU's,
+  (i2) the JAX package's bound on the log-probs and equal words, (i3) no
+  K5; `python -m wav2vec2_tpu_torch.doctor` on the daemon's directory
+  (exit 0, the card named, the kernel library ok); and the conformer
+  rel-pos large online (30 s bf16, (o1), K5 24 times a window at B=1,
+  T_pad 256), with K5 timed at that shape (the `kernels` line's
+  `flash_attention_k5_online` row).
 
 The host grouping runs the native engine throughout
 (`WAV2VEC2_NATIVE_GROUPING=require`): a silent fall-back to Python fails.
@@ -2079,12 +2105,16 @@ def time_family(card, name, aligner, vocab):
                 **spans)
 
 
-def time_flash_plain(device, card, b, nh, t, hd):
-    """K5 on plain masked attention at B=32, NH=16, T=499 (T_pad 512) in
-    bf16, the shape of the forced forwards at 32 x 10 s: the kernel alone,
-    its plain version and scaled_dot_product_attention, with the bound of
-    the 4·T_pad²·hd operations a (batch, head) does (q·kᵀ and P·V). Head
-    dim 80 runs through the 128-wide template, zero-filled."""
+def time_flash_shape(device, card, b, nh, t, hd, rel=False):
+    """K5 at one bf16 masked shape: the kernel alone, its plain version
+    and scaled_dot_product_attention (with `rel`, given the position term
+    and the mask as a precomputed bf16 bias, its construction excluded),
+    with the bound of the 4·T_pad²·hd operations a (batch, head) does (q·kᵀ
+    and P·V; 6·T_pad²·hd with `rel`). Plain masked attention at B=32,
+    NH=16, T=499 (T_pad 512) is the shape of the forced forwards at 32 x 10
+    s (head dim 80 runs through the 128-wide template, zero-filled); B=1,
+    NH=16, T=249 (T_pad 256) with `rel` is an online window of the
+    conformer rel-pos large."""
     import torch
     import torch.nn.functional as F
 
@@ -2093,25 +2123,32 @@ def time_flash_plain(device, card, b, nh, t, hd):
 
     scale = hd ** -0.5
     rng = np.random.default_rng(14)
-    q, k, v, mask, _, _ = flash_inputs(rng, b, nh, t, hd, "bfloat16", False, True, device)
-    pq, pk, pv, pmask, _ = fa.pad_inputs(q, k, v, mask, None, None)
+    q, k, v, mask, q_pos, rel_r = flash_inputs(rng, b, nh, t, hd, "bfloat16", rel, True,
+                                               device)
+    pq, pk, pv, pmask, pq_pos = fa.pad_inputs(q, k, v, mask, q_pos, rel_r)
     t_pad = pq.shape[2]
-    kernel = lambda: fa.flash_attention(pq, pk, pv, pmask, scale=scale)  # noqa: E731
-    plain = lambda: flash_attention_ref.attention(pq, pk, pv, pmask, scale=scale)  # noqa: E731
+    kernel = lambda: fa.flash_attention(pq, pk, pv, pmask, q_pos=pq_pos,  # noqa: E731
+                                        rel_r=rel_r, scale=scale)
+    plain = lambda: flash_attention_ref.attention(pq, pk, pv, pmask, q_pos=pq_pos,  # noqa: E731
+                                                  rel_r=rel_r, scale=scale)
     got, want = kernel().float(), plain().float()
     err = float((got - want).abs().max())
     rel_err = err / float(want.abs().max())
     if rel_err > FLASH_REL_BOUND["bfloat16"]:
-        raise AssertionError(f"K5 plain hd={hd}: relative error {rel_err}")
+        raise AssertionError(f"K5 B={b} T={t} hd={hd} rel={rel}: relative error {rel_err}")
     k_ms, p_ms = interleaved_ms(kernel, plain, 20, 3)
     with torch.inference_mode():
-        bias = pmask[:, None, None, :].to(torch.bfloat16)
+        bias = pmask[:, None, None, :]
+        if rel:
+            bias = flash_attention_ref.rel_scores(pq_pos, rel_r) * scale + bias
+        bias = bias.to(torch.bfloat16)
         library = lambda: F.scaled_dot_product_attention(pq, pk, pv, attn_mask=bias,  # noqa: E731
                                                          scale=scale)
         library()
         lib_ms = kernel_ms(library, 20)
-    bound_ms, bound_by = flash_bound(b, nh, t_pad, hd, 2, PEAK_BF16_OPS_PER_S, rel=False)
-    print(f"time: K5 plain masked attention (forced) hd={hd}: kernel {k_ms:.4f} ms vs plain "
+    bound_ms, bound_by = flash_bound(b, nh, t_pad, hd, 2, PEAK_BF16_OPS_PER_S, rel=rel)
+    what = "rel-pos masked attention" if rel else "plain masked attention (forced)"
+    print(f"time: K5 {what} hd={hd}: kernel {k_ms:.4f} ms vs plain "
           f"PyTorch {p_ms:.3f} ms vs SDPA {lib_ms:.4f} ms (K5/SDPA {k_ms / lib_ms:.2f}) at B={b} "
           f"NH={nh} T={t} (T_pad={t_pad}) bf16; bound {bound_ms:.4f} ms by {bound_by} "
           f"({bound_ms / k_ms:.1%} of it); relative error {rel_err:.2e} (device time, medians) "
@@ -2293,10 +2330,614 @@ def run_families(device, card, vocab):
         _add_counts(totals, run_family_cli(device, card, Path(tmp) / "hubert-large-ls960-ft",
                                            vocab))
     for hd in (64, 80):
-        plain_k5[hd] = time_flash_plain(device, card, 32, 16, 499, hd)
+        plain_k5[hd] = time_flash_shape(device, card, 32, 16, 499, hd)
     print(f"families phase: {len(FAMILY_PRESETS)} presets in "
           f"{time.perf_counter() - t_start:.1f} s; launches {totals} {card}")
     return totals, plain_k5, timed
+
+
+# --- the serving slice: the daemon, online alignment, int8, doctor --------
+SERVE_REQUESTS = 96
+SERVE_CLIENTS = 16
+SERVE_CHECKED_ALONE = 16
+SERVE_WORDS_PER_S = 2
+SERVE_INT8_REQUESTS = 8
+STREAMS = 4
+STREAM_SECONDS = 60.0
+STREAM_PIECE = 5120  # 0.32 s
+ONLINE_SECONDS = 60.0
+ONLINE_WORDS = 120
+ONLINE_CONFORMER_SECONDS = 30.0
+ONLINE_KNOBS = dict(chunk_sec=5.0, overlap_sec=1.0, finalize_margin_sec=2.0)
+
+
+def http(url, path, payload=None, method="POST", timeout=300):
+    """(status, JSON body) of one request to the daemon."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def pcm16_audio(rng, n):
+    """(the pcm16 payload, the f32 samples the daemon decodes from it) of
+    n samples of noise."""
+    import base64
+
+    pcm = np.clip(np.round(rng.normal(0, 0.1, n) * 32768.0), -32768, 32767).astype("<i2")
+    return ({"pcm16": base64.b64encode(pcm.tobytes()).decode()},
+            pcm.astype(np.float32) / np.float32(32768.0))
+
+
+def pcm16_audio_of(audio):
+    """The pcm16 payload of f32 samples decoded from pcm16 (exact)."""
+    import base64
+
+    pcm = np.round(audio * np.float32(32768.0)).astype("<i2")
+    return {"pcm16": base64.b64encode(pcm.tobytes()).decode()}
+
+
+def word_tuples(words):
+    return [(w.word, w.start_ms, w.end_ms, w.confidence) for w in words]
+
+
+def check_json_words(words, want, n_samples, stride_ms, what):
+    """The transcript's words in order, boundaries monotone and inside the
+    audio."""
+    if [w["word"] for w in words] != list(want):
+        raise AssertionError(f"{what}: words {[w['word'] for w in words]} are not the "
+                             "transcript's in order")
+    for a, b in zip(words, words[1:]):
+        if not a["start_ms"] <= a["end_ms"] <= b["start_ms"] <= b["end_ms"]:
+            raise AssertionError(f"{what}: words not monotone: {a} then {b}")
+    if words and words[-1]["end_ms"] > n_samples / SAMPLE_RATE * 1e3 + stride_ms:
+        raise AssertionError(f"{what}: a word ends past the audio: {words[-1]}")
+
+
+def stream_session(url, text, audio):
+    """One /stream session pushed in 0.32 s pieces: (words emitted along
+    the way, the flush's words)."""
+    import base64
+
+    code, out = http(url, "/stream", {"transcript": text, **ONLINE_KNOBS})
+    if code != 200:
+        raise AssertionError(f"/stream start: {code} {out}")
+    sid = out["stream_id"]
+    pcm = np.clip(np.round(audio * 32768.0), -32768, 32767).astype("<i2")
+    emitted = []
+    for i in range(0, len(pcm), STREAM_PIECE):
+        code, out = http(url, f"/stream/{sid}", {"audio": {
+            "pcm16": base64.b64encode(pcm[i: i + STREAM_PIECE].tobytes()).decode()}})
+        if code != 200:
+            raise AssertionError(f"/stream push: {code} {out}")
+        emitted += out["words"]
+    code, out = http(url, f"/stream/{sid}/flush")
+    if code != 200:
+        raise AssertionError(f"/stream flush: {code} {out}")
+    return emitted, out["words"]
+
+
+def alone_agreement(aligner, items, batched, stride_ms):
+    """(words exact, within one frame, total) of the daemon's answers
+    against each (audio, transcript) aligned alone by `align_utterances`."""
+    exact = within = total = 0
+    for (audio, text), words in zip(items, batched):
+        alone = aligner.align_utterances([audio], [text])[0].words
+        if [w["word"] for w in words] != [w.word for w in alone]:
+            raise AssertionError("a batched answer's words differ from the alone run's")
+        for got, want in zip(words, alone):
+            d = max(abs(got["start_ms"] - want.start_ms), abs(got["end_ms"] - want.end_ms))
+            total, exact, within = total + 1, exact + (d == 0), within + (d <= stride_ms)
+    return exact, within, total
+
+
+def run_serve(device, card, model_dir: Path, cfg, vocab):
+    """The serving daemon at the full width and depth of wav2vec2-base:
+    `build_service_from_model_dir` (bf16, 25 ms window, max_batch 32) on a
+    model directory written by the port's writer, `warmup_aligner` at 4 and
+    8 s, an `AlignHTTPServer` on 127.0.0.1:0 with a `StreamRegistry`. 16
+    client threads send 96 /align requests (2-12 s, 2 words a second,
+    pcm16 base64 and float lists, some as srt/vtt) while 4 /stream sessions
+    push 60 s each in 0.32 s pieces. Gates: (s1) every /align is 200 with
+    the transcript's words in order, monotone and inside the audio; (s2)
+    /stats counts 96 aligned with batches larger than 1; (s3) 16 of the
+    requests sent together to an f32 service on the same directory: every
+    word within one frame of the same utterance aligned alone, >= 99%
+    exact (the bf16 agreement is printed: bf16 results move with the
+    batch's GEMM shapes, and random weights leave paths near-tied);
+    (s4) in a burst, the request whose transcript cannot fit gets 400 and
+    the others 200; (s5, read by the caller) K1 launched, resident; each
+    stream's flush has the words of the same stream run alone in process,
+    boundaries within one frame, and its emitted words are a prefix of it.
+    Then an int8 service on the same directory answers 8 requests."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from wav2vec2_tpu_torch.align.online import OnlineAligner
+    from wav2vec2_tpu_torch.serve import (
+        AlignHTTPServer,
+        StreamRegistry,
+        build_service_from_model_dir,
+        make_handler,
+        warmup_aligner,
+    )
+
+    stride_ms = cfg.frame_stride_ms(SAMPLE_RATE)
+    t0 = time.perf_counter()
+    service, label = build_service_from_model_dir(model_dir, "bfloat16", window_ms=25,
+                                                  max_batch=32, device=str(device))
+    load_s = time.perf_counter() - t0
+    if label != torch.cuda.get_device_name(0):
+        raise AssertionError(f"the service's device label is {label!r}")
+    t0 = time.perf_counter()
+    shapes = warmup_aligner(service.aligner, [4, 8], max_batch=32)
+    warm_s = time.perf_counter() - t0
+    streams = StreamRegistry(service.aligner, "bfloat16")
+    httpd = AlignHTTPServer(("127.0.0.1", 0), make_handler(service, label, streams))
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_port}"
+    rng = np.random.default_rng(40)
+    requests = []
+    for i in range(SERVE_REQUESTS):
+        n = int(rng.uniform(2.0, 12.0) * SAMPLE_RATE)
+        payload_audio, audio = pcm16_audio(rng, n)
+        text = " ".join(rng.choice(WORDS, size=max(1, round(SERVE_WORDS_PER_S * n
+                                                               / SAMPLE_RATE))))
+        if i % 4 == 3:
+            payload_audio = audio.tolist()
+        fmt = {5: "srt", 11: "vtt"}.get(i % 16, "words")
+        requests.append((audio, text, fmt,
+                         {"audio": payload_audio, "transcript": text, "format": fmt}))
+    stream_texts = [" ".join(rng.choice(WORDS, size=int(SERVE_WORDS_PER_S * STREAM_SECONDS)))
+                    for _ in range(STREAMS)]
+    stream_audio = [pcm16_audio(rng, int(STREAM_SECONDS * SAMPLE_RATE))[1]
+                    for _ in range(STREAMS)]
+    stream_out = [None] * STREAMS
+
+    def stream(i):
+        try:
+            stream_out[i] = stream_session(url, stream_texts[i], stream_audio[i])
+        except BaseException as e:  # raised again below, on the main thread
+            stream_out[i] = e
+
+    try:
+        t0 = time.perf_counter()
+        stream_threads = [threading.Thread(target=stream, args=(i,)) for i in range(STREAMS)]
+        for t in stream_threads:
+            t.start()
+        with ThreadPoolExecutor(max_workers=SERVE_CLIENTS) as pool:
+            answers = list(pool.map(lambda r: http(url, "/align", r[3]), requests))
+        align_s = time.perf_counter() - t0
+        for t in stream_threads:
+            t.join(timeout=600)
+        streams_s = time.perf_counter() - t0
+        for i, ((audio, text, fmt, _), (code, body)) in enumerate(zip(requests, answers)):
+            if code != 200:
+                raise AssertionError(f"gate (s1): request {i} answered {code}: {body}")
+            if fmt == "words":
+                check_json_words(body["words"], text.split(), len(audio), stride_ms,
+                                 f"gate (s1), request {i}")
+            elif not (body["subtitles"].startswith("WEBVTT" if fmt == "vtt" else "1\n")
+                      and all(w in body["subtitles"] for w in text.split())):
+                raise AssertionError(f"gate (s1): request {i}'s {fmt} lacks its words")
+        code, stats = http(url, "/stats", method="GET")
+        hist = {int(k): n for k, n in stats["batch_size_histogram"].items()}
+        if stats["utterances_aligned"] != SERVE_REQUESTS or max(hist) < 2:
+            raise AssertionError(f"gate (s2): /stats {stats}")
+        checked = [i for i, r in enumerate(requests) if r[2] == "words"][:SERVE_CHECKED_ALONE]
+        bf16_alone = alone_agreement(service.aligner, [requests[i][:2] for i in checked],
+                                     [answers[i][1]["words"] for i in checked], stride_ms)
+        burst = [requests[j][3] for j in range(7)]
+        burst.insert(3, {"audio": [0.01] * 4800, "transcript": " ".join(WORDS)})
+        with ThreadPoolExecutor(max_workers=len(burst)) as pool:
+            codes = [(c, b) for c, b in pool.map(lambda p: http(url, "/align", p), burst)]
+        if [c for c, _ in codes] != [200] * 3 + [400] + [200] * 4 \
+                or "too short" not in codes[3][1]["error"]:
+            raise AssertionError(f"gate (s4): burst answered {[c for c, _ in codes]}")
+        # the same requests again as pcm16 alone, with no stream beside them:
+        # how much of the latency is the float-list JSON and the streams
+        busy0 = stats["audio_seconds"] / stats["realtime_factor"]
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=SERVE_CLIENTS) as pool:
+                quiet = list(pool.map(lambda r: http(url, "/align", {
+                    **r[3], "audio": pcm16_audio_of(r[0])}), requests))
+            quiet_s = time.perf_counter() - t0
+        kernel_s = sum(e.device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA) / 1e6
+        _, stats2 = http(url, "/stats", method="GET")
+        quiet_rtf = (stats2["audio_seconds"] - stats["audio_seconds"]) / (
+            stats2["audio_seconds"] / stats2["realtime_factor"] - busy0)
+        if any(c != 200 for c, _ in quiet):
+            raise AssertionError(f"the pcm16-only pass answered {[c for c, _ in quiet]}")
+        for i, result in enumerate(stream_out):
+            if not isinstance(result, tuple):
+                raise AssertionError(f"stream {i} failed: {result!r}") from (
+                    result if isinstance(result, BaseException) else None)
+            emitted, flushed = result
+            solo = OnlineAligner(service.aligner.cfg, service.aligner.params, vocab,
+                                 stream_texts[i], compute_dtype="bfloat16", device=device,
+                                 **ONLINE_KNOBS)
+            for j in range(0, len(stream_audio[i]), STREAM_PIECE):
+                solo.push(stream_audio[i][j: j + STREAM_PIECE])
+            want = solo.flush().words
+            check_json_words(flushed, stream_texts[i].split(), len(stream_audio[i]), stride_ms,
+                             f"stream {i}")
+            if emitted != flushed[: len(emitted)] or not emitted:
+                raise AssertionError(f"stream {i}: {len(emitted)} emitted words are not a "
+                                     "prefix of its flush")
+            if [w.word for w in want] != [w["word"] for w in flushed] or any(
+                    max(abs(g["start_ms"] - w.start_ms), abs(g["end_ms"] - w.end_ms))
+                    > stride_ms for g, w in zip(flushed, want)):
+                raise AssertionError(f"stream {i}: its flush differs from the same stream "
+                                     "run alone by more than one frame")
+    finally:
+        httpd.shutdown()
+        service.close()
+    # (s3) at f32: bf16 results move with the batch's shape (the GEMMs'
+    # accumulation order), and random weights leave the paths near-tied
+    service, _ = build_service_from_model_dir(model_dir, "float32", window_ms=25,
+                                              max_batch=32, device=str(device))
+    httpd = AlignHTTPServer(("127.0.0.1", 0), make_handler(service, label))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        f32_url = f"http://127.0.0.1:{httpd.server_port}"
+        with ThreadPoolExecutor(max_workers=len(checked)) as pool:
+            f32_answers = list(pool.map(lambda i: http(f32_url, "/align", requests[i][3]),
+                                        checked))
+        if any(c != 200 for c, _ in f32_answers) or max(b["batch_size"]
+                                                        for _, b in f32_answers) < 2:
+            raise AssertionError(f"gate (s3): f32 answers {[(c, b.get('batch_size')) for c, b in f32_answers]}")
+        exact, within, total = alone_agreement(service.aligner,
+                                               [requests[i][:2] for i in checked],
+                                               [b["words"] for _, b in f32_answers], stride_ms)
+        if not (within == total and exact >= 0.99 * total):
+            raise AssertionError(f"gate (s3): {exact}/{total} exact, {within}/{total} within "
+                                 "one frame of the utterances aligned alone (f32)")
+    finally:
+        httpd.shutdown()
+        service.close()
+    lat = [body["latency_ms"] for _, body in answers]
+    audio_s = sum(len(r[0]) for r in requests) / SAMPLE_RATE
+    print(f"serve: wav2vec2-base bf16 service built in {load_s:.3f} s, warmed {shapes} batch "
+          f"shapes in {warm_s:.3f} s; {SERVE_REQUESTS} /align requests ({audio_s:.1f} s of "
+          f"audio) from {SERVE_CLIENTS} clients in {align_s:.3f} s beside {STREAMS} /stream "
+          f"sessions of {STREAM_SECONDS:g} s ({streams_s:.3f} s); gates passed: (s1) all 200 "
+          f"with their words; (s2) /stats {stats['utterances_aligned']} aligned, batch sizes "
+          f"{dict(sorted(hist.items()))}; (s3) at f32, {len(checked)} requests batched "
+          f"together: {exact}/{total} words exact, {within}/{total} within one frame of each "
+          f"aligned alone (bf16, not gated: {bf16_alone[0]}/{bf16_alone[2]} exact, "
+          f"{bf16_alone[1]}/{bf16_alone[2]} within one frame); (s4) burst "
+          f"{[c for c, _ in codes]}; streams equal to alone")
+    print(f"time: serve /align latency p50 {np.percentile(lat, 50):.2f} ms, p99 "
+          f"{np.percentile(lat, 99):.2f} ms over {SERVE_REQUESTS} requests at {SERVE_CLIENTS} "
+          f"clients (latency_ms, beside {STREAMS} streams); /stats realtime_factor "
+          f"{stats['realtime_factor']} (audio seconds over the worker's busy seconds) {card}")
+    lat = [body["latency_ms"] for _, body in quiet]
+    print(f"time: serve /align again, pcm16 only and no stream: {quiet_s:.3f} s for "
+          f"{SERVE_REQUESTS} requests, latency p50 {np.percentile(lat, 50):.2f} ms, p99 "
+          f"{np.percentile(lat, 99):.2f} ms, {quiet_rtf:.1f}x realtime over the worker's busy "
+          f"seconds; device kernels {kernel_s:.3f} s of the pass's wall (torch.profiler, CUDA "
+          f"activity only: the card idle {1 - kernel_s / quiet_s:.1%}) {card}")
+
+    service, _ = build_service_from_model_dir(model_dir, "bfloat16", window_ms=25,
+                                              max_batch=32, quantize_int8=True,
+                                              device=str(device))
+    try:
+        with ThreadPoolExecutor(max_workers=SERVE_INT8_REQUESTS) as pool:
+            outs = list(pool.map(lambda r: service.submit(r[0], r[1]),
+                                 [r for r in requests if r[2] == "words"][:SERVE_INT8_REQUESTS]))
+        for (out, _), r in zip(outs, [r for r in requests if r[2] == "words"]):
+            check_words(out.words, r[1].split(), "int8 service")
+        q = service.aligner.params["encoder"]["layers"]["attention"]["q_proj"]
+        if q["kernel_q"].dtype != torch.int8 or service.aligner.cfg.use_flash_attention:
+            raise AssertionError("the int8 service is not quantized, or runs K5")
+    finally:
+        service.close()
+    print(f"serve --quantize-int8: {SERVE_INT8_REQUESTS} requests on the same directory "
+          f"aligned every word in order (batch sizes {sorted(bs for _, bs in outs)})")
+
+
+def online_run(cfg, params, vocab, text, audio, piece, device, dtype="bfloat16",
+               normalize="window", record=False):
+    """One `OnlineAligner` stream (chunk 5 s, overlap 1 s, margin 2 s),
+    warmed up, pushed in pieces of `piece` samples and flushed, with its
+    window forwards timed by CUDA events and its host DP and finalize by
+    the host clock. Returns a dict of the words and the times (and each
+    window's input and log-probs with `record`)."""
+    import torch
+
+    from wav2vec2_tpu_torch.align.online import OnlineAligner
+
+    ol = OnlineAligner(cfg, params, vocab, text, compute_dtype=dtype, normalize=normalize,
+                       device=device, **ONLINE_KNOBS)
+    ol.warmup()
+    events, windows, host = [], [], {"dp": 0.0, "finalize": 0.0}
+    fwd, dp_append, finalize = ol._fwd, ol.dp.append, ol._finalize
+
+    def timed_fwd(p, a, n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fwd(p, a, n)
+        end.record()
+        events.append((start, end))
+        if record:
+            windows.append((a.clone(), int(n[0]), out))
+        return out
+
+    def timed(name, fn):
+        def run(*a):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                host[name] += time.perf_counter() - t0
+        return run
+
+    ol._fwd, ol.dp.append, ol._finalize = timed_fwd, timed("dp", dp_append), \
+        timed("finalize", finalize)
+    emitted, push_ms = [], []
+    t0 = time.perf_counter()
+    for i in range(0, len(audio), piece):
+        t1 = time.perf_counter()
+        emitted += ol.push(audio[i: i + piece])
+        push_ms.append((time.perf_counter() - t1) * 1e3)
+    out = ol.flush().words
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dict(emitted=emitted, words=out, push_ms=push_ms, wall=wall, windows=windows,
+                fwd_ms=[s.elapsed_time(e) for s, e in events], host=host, aligner=ol)
+
+
+def check_stable_prefix(run, text, what):
+    """(o1): the words emitted along the way are a prefix of the flush,
+    word, start, end and confidence; all of the transcript's words."""
+    check_words(run["words"], text.split(), what)
+    if not run["emitted"] or word_tuples(run["emitted"]) != \
+            word_tuples(run["words"])[: len(run["emitted"])]:
+        raise AssertionError(f"gate (o1), {what}: {len(run['emitted'])} emitted words are not "
+                             "a prefix of the flush")
+
+
+def print_online(card, label, run, seconds):
+    per_s = {k: v * 1e3 / seconds for k, v in run["host"].items()}
+    print(f"time: online {label}: per push p50 {np.percentile(run['push_ms'], 50):.3f} ms, p99 "
+          f"{np.percentile(run['push_ms'], 99):.3f} ms ({len(run['push_ms'])} pushes); window "
+          f"forward {statistics.median(run['fwd_ms']):.3f} ms (CUDA events, median of "
+          f"{len(run['fwd_ms'])}); host DP {per_s['dp']:.3f} ms and finalize "
+          f"{per_s['finalize']:.3f} ms per audio second; stream {seconds / run['wall']:.1f}x "
+          f"realtime (push + flush wall) {card}")
+
+
+def run_online(device, card, cfg, params, vocab):
+    """`OnlineAligner` on wav2vec2-base at full width and depth, 60 s with
+    120 words, chunk 5 s, overlap 1 s, margin 2 s, at bf16 and f32. Gates:
+    (o1) emitted words a prefix of the flush; (o2) 0.1 s and 1.7 s pieces
+    give an identical flush; (o3) at f32 with normalize="none" the words of
+    `align_longform` on the same audio and windows, boundaries monotone;
+    (o4) each window's f32 log-probs within 1e-4 of the batch forward on
+    the same windows."""
+    import torch
+
+    from wav2vec2_tpu_torch.align.longform import align_longform
+    from wav2vec2_tpu_torch.models.ctc_model import log_softmax_logits, wav2vec2_forward
+    from wav2vec2_tpu_torch.pipeline.runtime import normalize_audio
+
+    rng = np.random.default_rng(41)
+    audio = pcm16_audio(rng, int(ONLINE_SECONDS * SAMPLE_RATE))[1]
+    text = " ".join(rng.choice(WORDS, size=ONLINE_WORDS))
+    bf16 = online_run(cfg, params, vocab, text, audio, STREAM_PIECE, device)
+    check_stable_prefix(bf16, text, "online bf16")
+    pieces = [online_run(cfg, params, vocab, text, audio, n, device)
+              for n in (1600, 27200)]
+    if not word_tuples(pieces[0]["words"]) == word_tuples(pieces[1]["words"]) \
+            == word_tuples(bf16["words"]):
+        raise AssertionError("gate (o2): 0.1 s, 0.32 s and 1.7 s pieces give different flushes")
+    norm = normalize_audio(audio)
+    f32 = online_run(cfg, params, vocab, text, norm, STREAM_PIECE, device, dtype="float32",
+                     normalize="none", record=True)
+    check_stable_prefix(f32, text, "online f32")
+    offline = align_longform(norm, text, params, cfg, vocab, chunk_sec=5.0, overlap_sec=1.0,
+                             compute_dtype="float32", device=device)
+    if [w.word for w in offline.words] != [w.word for w in f32["words"]]:
+        raise AssertionError("gate (o3): online f32 words differ from align_longform's")
+    with torch.inference_mode():
+        audio_w = torch.cat([a for a, _, _ in f32["windows"]])
+        lens = torch.tensor([n for _, n, _ in f32["windows"]], dtype=torch.int32, device=device)
+        batch_lp = log_softmax_logits(wav2vec2_forward(params, audio_w, cfg, audio_lens=lens,
+                                                       compute_dtype=torch.float32))
+    lp_err = 0.0
+    for j, (_, n, lp) in enumerate(f32["windows"]):
+        t = cfg.conv_output_length(n)
+        lp_err = max(lp_err, float((lp[0, :t] - batch_lp[j, :t]).abs().max()))
+    if not lp_err <= 1e-4:
+        raise AssertionError(f"gate (o4): window log-probs {lp_err} from the batch forward")
+    print(f"online: wav2vec2-base, {ONLINE_SECONDS:g} s with {ONLINE_WORDS} words, gates passed: "
+          f"(o1) {len(bf16['emitted'])} bf16 and {len(f32['emitted'])} f32 words emitted before "
+          f"the flush, a prefix of it; (o2) 0.1/0.32/1.7 s pieces give the same flush; (o3) "
+          f"f32 words == align_longform's; (o4) {len(f32['windows'])} windows' f32 log-probs "
+          f"within {lp_err:.2e} of the batch forward (bound 1e-4)")
+    print_online(card, "wav2vec2-base bf16, 0.32 s pieces", bf16, ONLINE_SECONDS)
+    print_online(card, "wav2vec2-base f32, 0.32 s pieces", f32, ONLINE_SECONDS)
+    print_online(card, "wav2vec2-base bf16, 0.1 s pieces", pieces[0], ONLINE_SECONDS)
+
+
+def run_online_conformer(device, card, conformer_np, vocab):
+    """The conformer rel-pos large at full width and depth online: 30 s at
+    bf16 with the service's aligner (`BatchAligner`'s config and bf16
+    weights, its kernel switch on): (o1) holds, and K5 runs 24 times a
+    window at B=1, T=249 (T_pad 256). Then K5 alone at that shape against
+    its plain version, SDPA and its bound. Returns (launches, K5 row)."""
+    import torch
+
+    from wav2vec2_tpu_torch.config import Wav2Vec2ModelConfig
+    from wav2vec2_tpu_torch.models.params import params_from_jax
+    from wav2vec2_tpu_torch.ops import flash_attention as fa
+    from wav2vec2_tpu_torch.parallel.batching import BatchAligner
+
+    cfg = Wav2Vec2ModelConfig.from_dict(CONFORMER_CONFIG)
+    aligner = BatchAligner(cfg, params_from_jax(conformer_np, device=device), vocab,
+                           "bfloat16", device=device)
+    rng = np.random.default_rng(42)
+    audio = pcm16_audio(rng, int(ONLINE_CONFORMER_SECONDS * SAMPLE_RATE))[1]
+    text = " ".join(rng.choice(WORDS, size=int(SERVE_WORDS_PER_S * ONLINE_CONFORMER_SECONDS)))
+    shapes, real = [], fa.flash_attention
+
+    def recording(q, *a, **kw):
+        shapes.append((q.shape[0], fa.pad_len(q.shape[2])))
+        return real(q, *a, **kw)
+
+    fa.flash_attention = recording
+    try:
+        reset_launches()
+        run = online_run(aligner.cfg, aligner.params, vocab, text, audio, STREAM_PIECE, device)
+        counts = read_launches()
+    finally:
+        fa.flash_attention = real
+    check_stable_prefix(run, text, "online conformer")
+    windows = len(run["fwd_ms"]) + 1  # and the warm-up window
+    if counts["k5"] != cfg.num_hidden_layers * windows or set(shapes) != {(1, 256)}:
+        raise AssertionError(f"online conformer: {counts} over {windows} windows at (B, T_pad) "
+                             f"{set(shapes)}; want K5 {cfg.num_hidden_layers} a window at (1, 256)")
+    print(f"online: conformer rel-pos large, {ONLINE_CONFORMER_SECONDS:g} s bf16, (o1) passed "
+          f"({len(run['emitted'])} words emitted before the flush); K5 {counts['k5']} launches "
+          f"over {windows} windows at B=1 T_pad=256")
+    print_online(card, "conformer rel-pos large bf16, 0.32 s pieces", run,
+                 ONLINE_CONFORMER_SECONDS)
+    del aligner
+    nh = cfg.num_attention_heads
+    row = time_flash_shape(device, card, 1, nh, cfg.conv_output_length(80_000),
+                           cfg.hidden_size // nh, rel=True)
+    return counts, row
+
+
+def run_int8(device, card, cfg, params, vocab, bf16_aligner):
+    """`BatchAligner(quantize_int8=True)` against bf16 on the same 32 x 10 s
+    batch of the batch entry. Gates: (i1) `linear_int8` at wav2vec2-base's
+    shapes ([B·T, 768] x [768, 3072] and back): int32 accumulators equal
+    to an f64 product of the same int8 values, the card's int8 tree equal
+    to the one quantized on the host, the output bit-equal to the same
+    function on the CPU (512 rows); (i2) the JAX package's bound on the
+    log-probs (max |Δ| < 0.25·max|lp_bf16| + 0.1) and equal word
+    sequences; (i3) no K5 launch under int8. Returns the launches."""
+    import torch
+
+    from wav2vec2_tpu_torch.models.layers import gelu
+    from wav2vec2_tpu_torch.models.quantize import (
+        int8_matmul,
+        linear_int8,
+        quantize_linear_int8,
+        quantize_rows,
+    )
+    from wav2vec2_tpu_torch.parallel.batching import BatchAligner
+
+    seqs, *arrays = batch_inputs(np.random.default_rng(0), vocab, 32, 10.0)
+    inputs = [torch.from_numpy(a).to(device) for a in arrays]
+    int8 = BatchAligner(cfg, params, vocab, "bfloat16", device=device, normalize_on_device=True,
+                        quantize_int8=True)
+    ffn_q = int8.params["encoder"]["layers"]["feed_forward"]
+    ffn = params["encoder"]["layers"]["feed_forward"]
+    rows = 32 * cfg.conv_output_length(arrays[0].shape[1])
+    x = torch.from_numpy(np.random.default_rng(43).normal(size=(rows, cfg.hidden_size))
+                         .astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    checked = []
+    with torch.inference_mode():
+        for name in ("intermediate_dense", "output_dense"):
+            host = quantize_linear_int8({k: v.cpu() for k, v in ffn[name].items()})
+            q = {k: v[0] for k, v in ffn_q[name].items()}
+            if not all(torch.equal(ffn_q[name][k].cpu(), host[k]) for k in ("kernel_q", "scale")):
+                raise AssertionError(f"gate (i1): {name}'s int8 tree differs from the host's")
+            xq, _ = quantize_rows(x)
+            acc = int8_matmul(xq, q["kernel_q"])
+            if not torch.equal(acc.double(), xq.double() @ q["kernel_q"].double()):
+                raise AssertionError(f"gate (i1): {name}'s int32 accumulators differ from f64")
+            y = linear_int8(x, q["kernel_q"], q["scale"], q["bias"])
+            y_cpu = linear_int8(x[:512].cpu(), q["kernel_q"].cpu(), q["scale"].cpu(),
+                                q["bias"].cpu())
+            if not torch.equal(y[:512].cpu().view(torch.int16), y_cpu.view(torch.int16)):
+                raise AssertionError(f"gate (i1): {name}'s card output differs from the CPU's")
+            checked.append(f"[{x.shape[0]}, {x.shape[1]}] x {list(q['kernel_q'].shape)}")
+            x = gelu(y)
+        reset_launches()
+        hq = int8.submit_padded_batch(*inputs, return_log_probs=True)
+        outs_q = int8.group_batch(seqs, hq)
+        counts = read_launches()
+        hb = bf16_aligner.submit_padded_batch(*inputs, return_log_probs=True)
+        outs_b = bf16_aligner.group_batch(seqs, hb)
+    if counts["k5"] or counts["k1"] < 1:
+        raise AssertionError(f"gate (i3): the int8 batch launched {counts}")
+    lp_q, lp_b, t_lens = hq[-1].cpu().numpy(), hb[-1].cpu().numpy(), hq[1].cpu().numpy()
+    d_max = max(float(np.abs(lp_q[j, :t] - lp_b[j, :t]).max()) for j, t in enumerate(t_lens))
+    ref = max(float(np.abs(lp_b[j, :t]).max()) for j, t in enumerate(t_lens))
+    if not d_max < 0.25 * ref + 0.1:
+        raise AssertionError(f"gate (i2): int8 log-probs max|Δ| {d_max}, bound {0.25 * ref + 0.1}")
+    stride_ms = cfg.frame_stride_ms(SAMPLE_RATE)
+    total = exact = within = 0
+    for j, (q, b) in enumerate(zip(outs_q, outs_b)):
+        if [w.word for w in q.words] != [w.word for w in b.words]:
+            raise AssertionError(f"gate (i2): int8 words differ from bf16's at utterance {j}")
+        for wq, wb in zip(q.words, b.words):
+            d = max(abs(wq.start_ms - wb.start_ms), abs(wq.end_ms - wb.end_ms))
+            total, exact, within = total + 1, exact + (d == 0), within + (d <= stride_ms)
+    print(f"int8: gates passed: (i1) linear_int8 at {' and '.join(checked)}: int32 "
+          f"accumulators == f64 product, the card's int8 tree == the host's, output bit-equal "
+          f"to the CPU's (512 rows); (i2) log-probs max|Δ| {d_max:.4f} < bound "
+          f"{0.25 * ref + 0.1:.4f}, words equal on 32 x 10 s (boundaries, not gated: "
+          f"{exact}/{total} exact, {within}/{total} within one frame); (i3) launches {counts}")
+    with torch.inference_mode():
+        from wav2vec2_tpu_torch.models.ctc_model import wav2vec2_forward
+        from wav2vec2_tpu_torch.parallel.batching import _normalize_batch
+
+        audio = _normalize_batch(inputs[0], inputs[1])
+        fwd = {name: (lambda a=a: wav2vec2_forward(a.params, audio, cfg, audio_lens=inputs[1],
+                                                   compute_dtype=torch.bfloat16))
+               for name, a in (("bf16", bf16_aligner), ("int8", int8))}
+        ms = {name: [] for name in fwd}
+        for name in ("bf16", "int8", "int8", "bf16"):
+            fwd[name]()
+            ms[name].append(cuda_time_ms(fwd[name], 3))
+    split = {}
+    for name in ("bf16", "int8"):
+        groups, busy_ms, _, _ = kernel_time_split(fwd[name])
+        split[name] = ("not measured" if not busy_ms else f"busy {busy_ms:.3f} ms: " + ", ".join(
+            f"{g} {ms:.3f}" for g, ms in groups.items() if g != "K5"))
+    rtf = {name: time_batch_path(a, vocab, 32, repeats=3)[0]
+           for name, a in (("int8", int8), ("bf16", bf16_aligner))}
+    print(f"time: wav2vec2-base forward int8 {statistics.median(ms['int8']):.3f} ms vs bf16 "
+          f"{statistics.median(ms['bf16']):.3f} ms for 32 x 10 s (CUDA events, medians; bf16, "
+          f"int8, int8, bf16); batch path int8 {rtf['int8']:.1f}x vs bf16 {rtf['bf16']:.1f}x "
+          f"realtime (3 batches of 32 x 10 s each) {card}")
+    print(f"time: the int8 forward by kernel group (torch.profiler, one forward; int8's GEMMs "
+          f"are cuBLASLt's): int8 {split['int8']}; bf16 {split['bf16']} {card}")
+    return counts
+
+
+def check_doctor(proc, card_name):
+    """The `doctor` subprocess started on the serve directory: exit 0, its
+    accelerator line names the card, its kernel line is ok."""
+    out, err = proc.communicate(timeout=300)
+    lines = out.splitlines()
+    acc = [line for line in lines if " accelerator: " in line]
+    kern = [line for line in lines if " cuda kernels: " in line]
+    if proc.returncode != 0 or not acc or card_name not in acc[0] \
+            or not acc[0].startswith("[  ok]") or not kern or not kern[0].startswith("[  ok]"):
+        raise AssertionError(f"doctor exited {proc.returncode}:\n{out}\n{err[-2000:]}")
+    print("doctor: exit 0; " + " | ".join(line for line in lines
+                                          if "accelerator" in line or "cuda kernels" in line
+                                          or "model.safetensors" in line))
 
 
 def tree_leaves(tree):
@@ -2389,10 +3030,10 @@ def main() -> int:
     # --- the paths, each counted from 0 -----------------------------------
     launches = {name: 0 for name in (*viterbi_cuda.TIERS, "k5", "k1_resident", "k1_device")}
 
-    def add(counts, phase, want):
+    def add(counts, phase, want=None):
         for tier, n in counts.items():
             launches[tier] += n
-        if counts[want] < 1:
+        if want is not None and counts[want] < 1:
             raise AssertionError(f"{phase} never launched {want}: {counts}")
 
     reset_launches()
@@ -2488,11 +3129,42 @@ def main() -> int:
               f"submit/drain double-buffered, {total_s:.3f} s wall = {total_s / 5 * 1e3:.1f} ms "
               f"per batch; per batch the host waited {wait_ms:.1f} ms for the copies and "
               f"grouped for {group_ms:.1f} ms; peak device memory {peak_gb:.2f} GB) {card}")
+    # --- the serving slice: daemon, online, int8, doctor -----------------
+    t_slice = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_model_dir(Path(tmp), BASE_CONFIG, params_np, cfg, vocab)
+        doctor = subprocess.Popen(
+            [sys.executable, "-m", "wav2vec2_tpu_torch.doctor", "--model-dir", tmp],
+            cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            reset_launches()
+            run_serve(device, card, Path(tmp), cfg, vocab)
+            counts = read_launches()
+            add(counts, "the serving daemon", "k1_resident")
+            if counts["k1_device"] or counts["k5"]:
+                raise AssertionError(f"gate (s5): the daemon launched {counts}")
+            print(f"serve: gate (s5) passed, launches {counts}")
+            check_doctor(doctor, name)
+        finally:
+            if doctor.poll() is None:
+                doctor.kill()
+                doctor.wait()
+    reset_launches()
+    run_online(device, card, cfg, params, vocab)
+    counts = read_launches()
+    add(counts, "the online aligner (wav2vec2-base)")
+    add(run_int8(device, card, cfg, params, vocab, aligner), "int8 serving", "k1")
+    print(f"time: the serving slice's phases took {time.perf_counter() - t_slice:.1f} s {card}")
     # --- the conformer rel-pos family: K5 on its path --------------------
     del aligner, params, inputs
     counts, k5_run, conformer_np = run_conformer(device, vocab, card)
     add(counts, "the conformer batch entry", "k5")
     max_err["k5"] = max(max_err["k5"], k5_run["err"])
+    counts, k5_online = run_online_conformer(device, card, conformer_np, vocab)
+    add(counts, "the conformer online aligner", "k5")
+    online_k5_launches = counts["k5"]
+    max_err["k5"] = max(max_err["k5"], k5_online["err"])
     # the single-utterance entry builds its forward with the kernel switch
     # off (factorized attention), as in the JAX package; 4 blocks at full
     # width keep the model directory small
@@ -2550,6 +3222,19 @@ def main() -> int:
         "bound_ms": k5_run["bound_ms"],
         "bound_by": k5_run["bound_by"],
         "library_ms": k5_run["library_ms"],
+    })
+    line.append({
+        "name": "flash_attention_k5_online",  # K5 at an online window: B=1, T_pad 256
+        "route": "cuda",
+        "source": "wav2vec2_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "wav2vec2_tpu/ops/flash_attention.py:124",
+        "launches": online_k5_launches,
+        "max_abs_err": k5_online["err"],
+        "ms": k5_online["ms"],
+        "plain_ms": k5_online["plain_ms"],
+        "bound_ms": k5_online["bound_ms"],
+        "bound_by": k5_online["bound_by"],
+        "library_ms": k5_online["library_ms"],
     })
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ The port never imports the JAX package (importing any of its modules runs
 of every numpy/stdlib host module it needs. Each copy's code must equal its
 JAX source, except for the lines named here, each with the reason the port
 differs. Code is compared after parsing, with docstrings dropped, so the
-copies may word their documentation for the port.
+copies may word their documentation for the port. Where the port rewrites
+part of a module (`align/online.py`, `serve.py`), its carried-over
+definitions are compared one by one.
 
 Also: no module of `wav2vec2_tpu_torch/`, and not `chip_smoke.py`, imports
 jax, the JAX package, safetensors or transformers (the card's machine has
@@ -23,6 +25,29 @@ REPO = Path(__file__).resolve().parent.parent
 # module (path under each package) -> the code lines the port changes:
 # "-" lines are the JAX source's, "+" lines the port's
 PORT_DIFFERENCES = {
+    # a definition of a module the port rewrites around it: "module::name"
+    "align/online.py::IncrementalViterbi": [],
+    "serve.py::PayloadTooLargeError": [],
+    "serve.py::_Request": [],
+    "serve.py::AlignmentService": [],
+    "serve.py::_decode_audio": [],
+    "serve.py::_word_to_json": [],
+    "serve.py::_StreamSession": [],
+    # each session's window forward runs on the service's torch device
+    "serve.py::StreamRegistry": [
+        "-            self._sessions[sid] = _StreamSession(OnlineAligner(self._aligner.cfg, "
+        "self._aligner.params, self._aligner.vocab, transcript, chunk_sec=chunk_sec, "
+        "overlap_sec=overlap_sec, finalize_margin_sec=finalize_margin_sec, "
+        "compute_dtype=self._compute_dtype, units=self._units), time.monotonic())",
+        "+            self._sessions[sid] = _StreamSession(OnlineAligner(self._aligner.cfg, "
+        "self._aligner.params, self._aligner.vocab, transcript, chunk_sec=chunk_sec, "
+        "overlap_sec=overlap_sec, finalize_margin_sec=finalize_margin_sec, "
+        "compute_dtype=self._compute_dtype, units=self._units, device=self._aligner.device), "
+        "time.monotonic())",
+    ],
+    "serve.py::AlignHTTPServer": [],
+    "serve.py::make_handler": [],
+    "serve.py::warmup_aligner": [],
     "align/tokenization.py": [],
     "align/grouping/phoneme.py": [],
     "data/audio.py": [],
@@ -168,9 +193,12 @@ PORT_DIFFERENCES = {
 }
 
 
-def _code_lines(path: Path) -> list[str]:
-    """The module's code, parsed and unparsed, without docstrings."""
+def _code_lines(path: Path, name: str | None = None) -> list[str]:
+    """The module's code (or its top-level definition `name`), parsed and
+    unparsed, without docstrings."""
     tree = ast.parse(path.read_text(encoding="utf-8"))
+    if name is not None:
+        tree = next(node for node in tree.body if getattr(node, "name", None) == name)
     for node in ast.walk(tree):
         if isinstance(node, (ast.Module, ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
             body = node.body
@@ -183,8 +211,9 @@ def _code_lines(path: Path) -> list[str]:
 
 @pytest.mark.parametrize("module", sorted(PORT_DIFFERENCES))
 def test_carried_over_module_equals_its_jax_source(module):
-    diff = difflib.unified_diff(_code_lines(REPO / "wav2vec2_tpu" / module),
-                                _code_lines(REPO / "wav2vec2_tpu_torch" / module),
+    path, _, name = module.partition("::")
+    diff = difflib.unified_diff(_code_lines(REPO / "wav2vec2_tpu" / path, name or None),
+                                _code_lines(REPO / "wav2vec2_tpu_torch" / path, name or None),
                                 lineterm="", n=0)
     changed = [l for l in diff if l[:1] in "+-" and not l.startswith(("+++", "---"))]
     assert changed == PORT_DIFFERENCES[module]

@@ -110,3 +110,39 @@ def test_k5_size_it_does_not_take_raises_before_launching(hd, dtype):
     with pytest.raises(ValueError, match="K5"):
         flash_attention.flash_attention(q, q, q)
     assert flash_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 768, 3072), (16, 768, 768), (49, 768, 3072),
+                                   (15968, 3072, 768), (5, 12, 20), (33, 8, 9)])
+def test_int8_linear_on_the_card(m, k, n):
+    """`torch._int_mm` behind `linear_int8` on the card, at the serving
+    shapes and at rows, inner and output widths its shape rules refuse
+    unpadded: the int32 product equals an f64 product of the same int8
+    values (exact below 2**53), and the output is bit-equal to the same
+    function on the CPU."""
+    from wav2vec2_tpu_torch.models.quantize import (
+        int8_matmul,
+        linear_int8,
+        quantize_linear_int8,
+        quantize_rows,
+    )
+
+    device = _card()
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(torch.bfloat16)
+    q = quantize_linear_int8({
+        "kernel": torch.from_numpy(rng.normal(0, 0.05, size=(k, n)).astype(np.float32)),
+        "bias": torch.from_numpy(rng.normal(0, 0.1, size=n).astype(np.float32))})
+    card = {name: t.to(device) for name, t in q.items()}
+    xq, _ = quantize_rows(x.to(device))
+    acc = int8_matmul(xq, card["kernel_q"])
+    assert acc.dtype == torch.int32 and acc.shape == (m, n)
+    assert torch.equal(acc.double(), xq.double() @ card["kernel_q"].double())
+    got = linear_int8(x.to(device), card["kernel_q"], card["scale"], card["bias"])
+    want = linear_int8(x, q["kernel_q"], q["scale"], q["bias"])
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+    w = torch.from_numpy(rng.normal(0, 0.05, size=(k, n)).astype(np.float32))
+    on_card = quantize_linear_int8({"kernel": w.to(device)})
+    on_host = quantize_linear_int8({"kernel": w})
+    assert all(torch.equal(on_card[key].cpu(), on_host[key]) for key in ("kernel_q", "scale"))

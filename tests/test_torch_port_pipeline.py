@@ -13,9 +13,10 @@
 - The port imports and runs its CPU slice (batch, single-utterance and
   long-form entries, a tiny conformer through the batch entry with the
   attention kernel switch on and off, forwards of the WavLM, mHuBERT +
-  adapter, SEW, SEW-D and w2v-BERT families, and the `alignment_report` CLI in
-  textgrid, json and perf modes on a FLAC dataset) with jax, safetensors
-  and transformers made unimportable.
+  adapter, SEW, SEW-D and w2v-BERT families, the `alignment_report` CLI in
+  textgrid, json and perf modes on a FLAC dataset, `OnlineAligner`, int8
+  serving, the serving daemon's service and `doctor`) with jax,
+  safetensors and transformers made unimportable.
 """
 
 import json
@@ -349,6 +350,25 @@ with tempfile.TemporaryDirectory() as tmp:
     assert report["meta"]["case_count"] == 2 and report["meta"]["device"] == "cpu"
     assert run(common + ["--output-format", "perf", "--perf-out", tmp + "/p.jsonl",
                          "--perf-warmup", "1", "--perf-repeats", "1"]) == 0
+import contextlib, io
+from wav2vec2_tpu_torch import OnlineAligner, doctor, serve
+ol = OnlineAligner(cfg, params_from_jax(init_params(cfg, 0)), vocab, "the quick fox",
+                   chunk_sec=0.5, overlap_sec=0.125, device="cpu")
+ol.push(rng.normal(size=12000).astype(np.float32))
+assert [x.word for x in ol.flush().words] == ["THE", "QUICK", "FOX"]
+out = w.BatchAligner(cfg, params_from_jax(init_params(cfg, 0)), vocab, "bfloat16", device="cpu",
+                     quantize_int8=True).align_utterances(
+    [rng.normal(size=4000).astype(np.float32)], ["over the dog"], audio_multiple=1000)
+assert [x.word for x in out[0].words] == ["OVER", "THE", "DOG"], out
+service, label = serve.build_service_from_model_dir({str(model_dir)!r}, "float32", max_batch=2,
+                                                    device="cpu")
+res, _ = service.submit(rng.normal(size=8000).astype(np.float32), "JUMPS OVER")
+service.close()
+assert label == "cpu" and [x.word for x in res.words] == ["JUMPS", "OVER"]
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    doctor.main(["--model-dir", {str(model_dir)!r}])
+assert "family prefix: wav2vec2" in buf.getvalue() and "accelerator" in buf.getvalue()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("wav2vec2_tpu", "jax")
              and sys.modules[m] is not None)
 assert not bad, bad

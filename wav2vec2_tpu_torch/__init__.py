@@ -18,7 +18,10 @@ rel-pos family. Over them: `BatchAligner.align_stream`, word and phoneme
 units, the native grouping engine, and the `alignment_report` CLI
 (`python -m wav2vec2_tpu_torch.cli.alignment_report`) with its data
 readers (FLAC, WAV, the LibriSpeech layout) and reports (JSON, perf
-JSONL, TextGrid, SRT/VTT).
+JSONL, TextGrid, SRT/VTT). Online alignment (`OnlineAligner`, loaded
+lazily), the serving daemon (`python -m wav2vec2_tpu_torch.serve`), int8
+serving (`BatchAligner(quantize_int8=True)`) and the environment check
+(`python -m wav2vec2_tpu_torch.doctor`).
 """
 
 from .align.longform import align_longform
@@ -54,6 +57,16 @@ from .types import (
     WordTiming,
 )
 
+
+def __getattr__(name):
+    # the online aligner loads lazily, as in the JAX package
+    if name == "OnlineAligner":
+        from .align.online import OnlineAligner
+
+        return OnlineAligner
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "AlignerHyperParams",
     "AlignmentError",
@@ -68,6 +81,7 @@ __all__ = [
     "InvalidInputError",
     "IoError",
     "JsonError",
+    "OnlineAligner",
     "ProfiledAlignmentOutput",
     "RuntimeBackendError",
     "TokenSequence",

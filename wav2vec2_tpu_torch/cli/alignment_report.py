@@ -55,7 +55,9 @@ from ..data.librispeech import (
     resolve_dataset_base_and_subsets,
 )
 from ..data.textgrid import write_textgrid
+from ..errors import InvalidInputError
 from ..types import AlignmentInput
+from ..utils.device import device_label, select_device
 from . import perf_report_formatter as perf_fmt
 from .json_report_formatter import write_report
 
@@ -187,20 +189,13 @@ def _require(path: Path, what: str) -> Path:
 
 
 def _select_device(name: str) -> torch.device:
-    """The torch device the CLI runs on: cuda or cpu, and cuda only where
-    a CUDA device is present (no silent fall-back to the CPU)."""
+    """The torch device the CLI runs on (`utils.device.select_device`:
+    cuda or cpu, and cuda only where a CUDA device is present, with no
+    silent fall-back to the CPU); a refusal exits with its message."""
     try:
-        device = torch.device(name)
-    except RuntimeError:
-        device = None
-    if device is None or device.type not in ("cuda", "cpu"):
-        raise SystemExit(f"error: unknown --device {name!r}; use cuda or cpu")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(
-            f"error: --device {name} asked for a CUDA device, but torch sees "
-            "none; pass --device cpu to run on the CPU"
-        )
-    return device
+        return select_device(name)
+    except InvalidInputError as e:
+        raise SystemExit(f"error: {e}") from None
 
 
 def _load_model(args):
@@ -282,15 +277,14 @@ def run(argv=None) -> int:
     if args.runtime == "onnx":
         raise SystemExit(
             "error: --runtime onnx is not ported to PyTorch yet "
-            "(ROADMAP.md §1 item 7); use --runtime torch"
+            "(ROADMAP.md §1 item 8); use --runtime torch"
         )
 
     from ..utils.tracing import configure_logging
 
     configure_logging()
     device = _select_device(args.device)
-    label = (torch.cuda.get_device_name(device) if device.type == "cuda"
-             else "cpu")
+    label = device_label(device)
     print(f"[alignment_report] torch device: {device} ({label})", file=sys.stderr)
 
     model_dir, weights_path, _, _, model_cfg, vocab = _load_model(args)
@@ -532,9 +526,6 @@ def _run_perf(args, model_dir, model_cfg, dataset_root, cases) -> int:
     )
     records: list[perf_fmt.PerfUtteranceRecord] = []
     scaling: list[tuple[str, int, int, int, float]] = []
-
-    from ..errors import InvalidInputError
-
     warmed = False
     try:
         for idx, c in enumerate(cases):

@@ -57,6 +57,7 @@ import torch.nn.functional as F
 from ..config import POSITION_STYLES, Wav2Vec2ModelConfig
 from ..ops import flash_attention as fa
 from .layers import act_fn, gelu, layer_norm, linear
+from .quantize import linear_maybe_quantized
 
 
 def _conv1d(x: torch.Tensor, w: torch.Tensor, padding: int, groups: int = 1,
@@ -194,8 +195,7 @@ def _self_attention(
 
     if position_bias is not None:
         g = x.reshape(b, t, num_heads, head_dim).transpose(1, 2)
-        lin = p["gru_rel_pos_linear"]
-        proj = linear(g, lin["kernel"], lin["bias"])
+        proj = linear_maybe_quantized(g, p["gru_rel_pos_linear"])
         gates = torch.sigmoid(proj.reshape(b, num_heads, t, 2, 4).sum(-1).float())
         ga, gb = gates[..., 0:1], gates[..., 1:2]
         const = p["gru_rel_pos_const"].reshape(1, num_heads, 1, 1).float()
@@ -206,9 +206,9 @@ def _self_attention(
         return y.reshape(b, t, num_heads, head_dim).transpose(1, 2)
 
     scale = torch.tensor(head_dim ** -0.5, dtype=x.dtype)
-    q = split_heads(linear(x, p["q_proj"]["kernel"], p["q_proj"]["bias"]) * scale)
-    k = split_heads(linear(x, p["k_proj"]["kernel"], p["k_proj"]["bias"]))
-    v = split_heads(linear(x, p["v_proj"]["kernel"], p["v_proj"]["bias"]))
+    q = split_heads(linear_maybe_quantized(x, p["q_proj"]) * scale)
+    k = split_heads(linear_maybe_quantized(x, p["k_proj"]))
+    v = split_heads(linear_maybe_quantized(x, p["v_proj"]))
     if use_flash and position_bias is None and fa.use_flash(head_dim, dtype=x.dtype):
         mb = None if mask_bias is None else mask_bias.reshape(b, t)
         out = fa.flash_attention(q, k, v, mb, scale=1.0)
@@ -219,21 +219,20 @@ def _self_attention(
         attn = torch.softmax(scores, dim=-1)
         out = torch.matmul(attn, v)
     out = out.transpose(1, 2).reshape(b, t, h)
-    return linear(out, p["out_proj"]["kernel"], p["out_proj"]["bias"])
+    return linear_maybe_quantized(out, p["out_proj"])
 
 
 def _feed_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
-    up = gelu(linear(x, p["intermediate_dense"]["kernel"],
-                     p["intermediate_dense"]["bias"]))
-    return linear(up, p["output_dense"]["kernel"], p["output_dense"]["bias"])
+    up = gelu(linear_maybe_quantized(x, p["intermediate_dense"]))
+    return linear_maybe_quantized(up, p["output_dense"])
 
 
 def _attn_adapter(a: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     """MMS attention adapter (Wav2Vec2AttnAdapterLayer): LN → down-proj →
     ReLU → up-proj."""
     h = layer_norm(x, a["norm"]["weight"], a["norm"]["bias"], eps)
-    h = torch.relu(linear(h, a["linear_1"]["kernel"], a["linear_1"]["bias"]))
-    return linear(h, a["linear_2"]["kernel"], a["linear_2"]["bias"])
+    h = torch.relu(linear_maybe_quantized(h, a["linear_1"]))
+    return linear_maybe_quantized(h, a["linear_2"])
 
 
 def _encoder_layer(
@@ -644,9 +643,9 @@ def _conformer_attention(
     def split_heads(y):
         return y.reshape(b, t, nh, hd).transpose(1, 2)
 
-    q = split_heads(linear(qk_states, p["linear_q"]["kernel"], p["linear_q"]["bias"]))
-    k = split_heads(linear(qk_states, p["linear_k"]["kernel"], p["linear_k"]["bias"]))
-    v = split_heads(linear(x, p["linear_v"]["kernel"], p["linear_v"]["bias"]))
+    q = split_heads(linear_maybe_quantized(qk_states, p["linear_q"]))
+    k = split_heads(linear_maybe_quantized(qk_states, p["linear_k"]))
+    v = split_heads(linear_maybe_quantized(x, p["linear_v"]))
 
     rel = style == "relative"
     if (cfg.use_flash_attention and style != "relative_key"
@@ -663,7 +662,7 @@ def _conformer_attention(
     else:
         out = _attention_core(p, q, k, v, mask_bias, style, h, cfg)
     out = out.transpose(1, 2).reshape(b, t, h)
-    return linear(out, p["linear_out"]["kernel"], p["linear_out"]["bias"])
+    return linear_maybe_quantized(out, p["linear_out"])
 
 
 def _conformer_conv_module(
@@ -717,9 +716,8 @@ def _conformer_layer(
     eps = cfg.layer_norm_eps if cfg.encoder_style == "conformer_bert" else 1e-5
 
     def ff(fp, y):
-        up = act(linear(y, fp["intermediate_dense"]["kernel"],
-                        fp["intermediate_dense"]["bias"]))
-        return linear(up, fp["output_dense"]["kernel"], fp["output_dense"]["bias"])
+        up = act(linear_maybe_quantized(y, fp["intermediate_dense"]))
+        return linear_maybe_quantized(up, fp["output_dense"])
 
     def ln(name, y):
         return layer_norm(y, lp[name]["weight"], lp[name]["bias"], eps)
@@ -842,7 +840,6 @@ def bert_adapter_forward(
         lens = new_lens
         x = _conformer_attention(lp["self_attn"], h, mask_bias, cfg, None, style="none") + res
         f = lp["ffn"]
-        up = act(linear(ln(lp, "ffn_layer_norm", x), f["intermediate_dense"]["kernel"],
-                        f["intermediate_dense"]["bias"]))
-        x = linear(up, f["output_dense"]["kernel"], f["output_dense"]["bias"]) + x
+        up = act(linear_maybe_quantized(ln(lp, "ffn_layer_norm", x), f["intermediate_dense"]))
+        x = linear_maybe_quantized(up, f["output_dense"]) + x
     return x, lens

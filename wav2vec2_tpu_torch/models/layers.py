@@ -8,24 +8,42 @@ back to the input dtype, as in the JAX package.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 
+_tf32_lock = threading.Lock()
+_tf32_holders = 0  # blocks open in any thread
+_tf32_saved: tuple[bool, bool] | None = None
+
+
 @contextlib.contextmanager
 def full_f32_precision():
-    """TF32 off for matmuls and cuDNN convolutions inside the block."""
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    cudnn = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """TF32 off for matmuls and cuDNN convolutions inside the block.
+
+    The flags are process-global, so the block is shared between threads:
+    the first thread to enter saves the flags and turns TF32 off, TF32
+    stays off while any thread (or a nested block) is inside, and the last
+    one to leave restores the saved flags."""
+    global _tf32_holders, _tf32_saved
+    with _tf32_lock:
+        if _tf32_holders == 0:
+            _tf32_saved = (torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _tf32_holders += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul
-        torch.backends.cudnn.allow_tf32 = cudnn
+        with _tf32_lock:
+            _tf32_holders -= 1
+            if _tf32_holders == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _tf32_saved
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -54,13 +54,17 @@ _BERT_ADAPTER_LAYER_KEYS = {"residual_layer_norm", "residual_conv", "self_attn_l
 # adapter's is `norm`, the adapters' `proj_layer_norm`, SEW-D's
 # `output_norm`, w2v-BERT's `depthwise_layer_norm` and the BERT adapter's
 # `residual_layer_norm` / `ffn_layer_norm`), the folded BatchNorms, WavLM's
-# bias embedding and gate constant, and SEW-D's position embedding with its
-# norm (`wav2vec2_tpu.models.quantize`'s set, but for its int8 `scale`)
+# bias embedding and gate constant, SEW-D's position embedding with its
+# norm, and the int8 projections' dequant `scale`
+# (`wav2vec2_tpu.models.quantize`'s set)
 _KEEP_F32_KEYS = {"layer_norm", "final_layer_norm", "norm", "ffn1_layer_norm",
                   "ffn2_layer_norm", "self_attn_layer_norm", "proj_layer_norm",
                   "depthwise_layer_norm", "output_norm", "rel_embeddings",
                   "rel_embeddings_layer_norm", "residual_layer_norm", "ffn_layer_norm",
-                  "batch_norm", "rel_attn_embed", "gru_rel_pos_const"}
+                  "batch_norm", "rel_attn_embed", "gru_rel_pos_const", "scale"}
+# a projection the encoder reads through `quantize.linear_maybe_quantized`:
+# plain, or int8 (`quantize.quantize_linear_int8`)
+_DENSE_FORMS = ({"kernel", "bias"}, {"kernel_q", "scale", "bias"})
 BATCH_NORM_EPS = 1e-5  # torch BatchNorm1d's default, folded in at load
 # config.json model_type → the HF checkpoint's model prefix
 HF_PREFIXES = {"wav2vec2": "wav2vec2.", "wav2vec2-conformer": "wav2vec2_conformer.",
@@ -321,6 +325,9 @@ def _check_tree(tree: dict) -> None:
                     "encoder layers")
         _check_keys(layers["attention"], {*_ATTENTION_KEYS, *(_WAVLM_KEYS if wavlm else ())},
                     "encoder attention (WavLM's gates come with its rel_attn_embed)")
+        for group, names in (("attention", _ATTENTION_KEYS), ("feed_forward", _FFN_KEYS)):
+            for name in sorted(names):
+                _check_one_of(layers[group][name], _DENSE_FORMS, f"encoder {group}.{name}")
         if mms:
             _check_keys(layers["adapter_layer"], {"norm", "linear_1", "linear_2"},
                         "adapter_layer")
@@ -333,6 +340,11 @@ def _check_tree(tree: dict) -> None:
     elif bert and "distance_embedding" in layers["self_attn"]:
         attn |= {"distance_embedding"}
     _check_keys(layers["self_attn"], attn, "conformer self_attn")
+    for where, node in [*((f"self_attn.{n}", layers["self_attn"][n])
+                          for n in _ATTENTION_PROJECTIONS),
+                        *((f"{f}.{n}", layers[f][n]) for f in ("ffn1", "ffn2")
+                          for n in sorted(_FFN_KEYS))]:
+        _check_one_of(node, _DENSE_FORMS, f"conformer {where}")
     _check_keys(layers["conv_module"], _BERT_CONV_MODULE_KEYS if bert else _CONV_MODULE_KEYS,
                 "conformer conv_module")
 
@@ -342,9 +354,10 @@ def params_from_jax(
     dtype: torch.dtype = torch.float32,
 ) -> dict:
     """JAX parameter pytree (numpy arrays, or anything `np.asarray` takes)
-    → the port's tree of torch tensors on `device`. The key set is checked
-    per encoder (told apart by the layers' keys): a tree with an unknown
-    subtree is refused."""
+    → the port's tree of torch tensors on `device`, float leaves as
+    `dtype` and the int8 weights of a quantized tree (`kernel_q`) as int8.
+    The key set is checked per encoder (told apart by the layers' keys): a
+    tree with an unknown subtree is refused."""
     _check_tree(tree)
 
     def convert(node):
@@ -352,8 +365,10 @@ def params_from_jax(
             return {k: convert(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [convert(v) for v in node]
-        arr = np.asarray(node, dtype=np.float32)
-        return torch.tensor(arr, dtype=dtype, device=device)
+        arr = np.asarray(node)
+        if arr.dtype == np.int8:
+            return torch.tensor(arr, device=device)
+        return torch.tensor(np.asarray(arr, dtype=np.float32), dtype=dtype, device=device)
 
     return convert(tree)
 
@@ -370,14 +385,17 @@ def params_to_device(params, device: str | torch.device):
 def cast_compute_weights_bf16(params: dict) -> dict:
     """Store compute weights (matmul kernels and biases, conv weights) in
     bf16 and keep the subtrees of `_KEEP_F32_KEYS` (norms, folded
-    BatchNorms, WavLM's f32-consumed bias embedding and gate constant) in
-    f32, as `wav2vec2_tpu.models.quantize.cast_compute_weights_bf16` does.
-    Under bf16 compute every consumption site casts weights to the
-    activation dtype anyway, so this only halves the weight memory."""
+    BatchNorms, WavLM's f32-consumed bias embedding and gate constant, int8
+    dequant scales) and the bias of every int8-quantized projection
+    (`quantize.linear_int8` adds it in f32) in f32, as
+    `wav2vec2_tpu.models.quantize.cast_compute_weights_bf16` does. Under
+    bf16 compute every consumption site casts weights to the activation
+    dtype anyway, so this only halves the weight memory."""
 
     def walk(node):
         if isinstance(node, dict):
-            return {k: (v if k in _KEEP_F32_KEYS else walk(v))
+            quantized = "kernel_q" in node
+            return {k: (v if k in _KEEP_F32_KEYS or (quantized and k == "bias") else walk(v))
                     for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v) for v in node]

@@ -7,15 +7,19 @@ attention kernel K5) is compiled at first use with one `nvcc` call for
 newer), and loaded with `ctypes`. Each wrapper module (`viterbi_cuda`,
 `flash_attention`) declares the argument types of its own C functions on
 the loaded library. Pointers and the stream go in as `ctypes.c_void_p`.
+
+Building and loading hold one lock per process: threads that reach their
+first launch together (the serving daemon's batch worker and its stream
+sessions) run one `nvcc` between them.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -27,6 +31,8 @@ LIBRARY = BUILD_DIR / "libkernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_SMEM_BYTES = 232_448  # per block on H100, opt-in dynamic shared memory
+_lock = threading.RLock()
+_library: ctypes.CDLL | None = None
 
 
 def _nvcc() -> str:
@@ -44,26 +50,30 @@ def build(force: bool = False) -> dict:
     """Compile the kernel library if it is missing or older than a source.
     Returns {"library", "seconds", "compiler_output"} (seconds is 0.0 when
     the library was up to date)."""
-    newest = max(src.stat().st_mtime for src in SOURCES)
-    if not force and LIBRARY.exists() and LIBRARY.stat().st_mtime >= newest:
-        return {"library": str(LIBRARY), "seconds": 0.0, "compiler_output": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, LIBRARY)
-    return {"library": str(LIBRARY), "seconds": seconds,
-            "compiler_output": res.stdout + res.stderr}
+    with _lock:
+        newest = max(src.stat().st_mtime for src in SOURCES)
+        if not force and LIBRARY.exists() and LIBRARY.stat().st_mtime >= newest:
+            return {"library": str(LIBRARY), "seconds": 0.0, "compiler_output": ""}
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = LIBRARY.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}{res.stderr}"
+            )
+        os.replace(tmp, LIBRARY)
+        return {"library": str(LIBRARY), "seconds": seconds,
+                "compiler_output": res.stdout + res.stderr}
 
 
-@functools.cache
 def library() -> ctypes.CDLL:
     """The kernel library, built if needed and loaded once per process."""
-    build()
-    return ctypes.CDLL(str(LIBRARY))
+    global _library
+    with _lock:
+        if _library is None:
+            build()
+            _library = ctypes.CDLL(str(LIBRARY))
+        return _library

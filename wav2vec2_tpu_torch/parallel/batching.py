@@ -17,9 +17,10 @@ phoneme-CTC mode.
 
 `use_flash_attention` routes the conformer rel-pos attention through the
 fused kernel K5 (`ops.flash_attention`); by default it is on on a CUDA
-device.
+device, and off under `quantize_int8`, the int8 serving mode
+(`models.quantize`), as in the JAX engine.
 
-Not ported yet: the device mesh and int8 serving.
+Not ported yet: the device mesh.
 """
 
 from __future__ import annotations
@@ -43,10 +44,12 @@ from ..config import AlignerHyperParams, Wav2Vec2ModelConfig
 from ..errors import InvalidInputError
 from ..models.ctc_model import frame_lengths, log_softmax_logits, wav2vec2_forward
 from ..models.params import cast_compute_weights_bf16, params_to_device
+from ..models.quantize import quantize_encoder_int8
 from ..ops import viterbi_cuda
 from ..ops.evidence import evidence_batch
 from ..pipeline.runtime import _utterance_frame_stats, normalize_audio
 from ..types import AlignmentOutput
+from ..utils.device import select_device
 
 logger = logging.getLogger(__name__)
 
@@ -162,10 +165,14 @@ class BatchAligner:
     """High-throughput batch alignment on one torch device.
 
     `params` is the port's parameter tree (models.params), on any device:
-    it is moved to `device` and, at bf16, its compute weights are stored in
-    bf16. `use_flash_attention` sets the config's switch of that name: None
-    (auto) turns it on on a CUDA device; True or False overrides a config
-    that arrived with the switch set either way."""
+    it is moved to `device` (`cuda` unless the caller asks for the CPU; no
+    CUDA device raises), with `quantize_int8` its encoder projections are
+    quantized (`models.quantize.quantize_encoder_int8`), and at bf16 its
+    compute weights are stored in bf16, in that order.
+    `use_flash_attention` sets the config's switch of that name: None
+    (auto) turns it on on a CUDA device unless `quantize_int8`; True or
+    False overrides a config that arrived with the switch set either
+    way."""
 
     def __init__(
         self,
@@ -179,15 +186,15 @@ class BatchAligner:
         normalize_on_device: bool = False,
         use_flash_attention: bool | None = None,
         units: str = "word",
+        quantize_int8: bool = False,
     ):
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unsupported compute dtype {compute_dtype!r}")
-        self.device = torch.device(device)
+        self.device = select_device(device)
         if use_flash_attention is None:
-            # auto, as the JAX engine enables it on its accelerator (int8
-            # serving, which the JAX engine keeps off the kernel, is not
-            # ported)
-            use_flash_attention = self.device.type == "cuda"
+            # auto, as the JAX engine enables it on its accelerator; int8
+            # serving keeps the plain attention, there as here
+            use_flash_attention = self.device.type == "cuda" and not quantize_int8
         if model_cfg.use_flash_attention != bool(use_flash_attention):
             model_cfg = replace(model_cfg, use_flash_attention=bool(use_flash_attention))
         self.cfg = model_cfg
@@ -195,6 +202,9 @@ class BatchAligner:
             torch.float32 if compute_dtype == "float32" else torch.bfloat16
         )
         params = params_to_device(params, self.device)
+        if quantize_int8:
+            # from the weights as given (f32 unless the caller cast them)
+            params = quantize_encoder_int8(params)
         if self.compute_dtype == torch.bfloat16:
             params = cast_compute_weights_bf16(params)
         self.params = params

@@ -29,6 +29,22 @@ _DTYPES = {
 _NAMES = {v: k for k, v in _DTYPES.items()}
 
 
+def safetensors_names(path: str | Path) -> list[str]:
+    """The tensor names of a safetensors file, read from its header alone."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(8)
+            if len(head) < 8:
+                raise RuntimeBackendError("load weights", f"{path}: truncated header")
+            (n,) = struct.unpack("<Q", head)
+            raw = f.read(n)
+    except OSError as e:
+        raise IoError("read safetensors", e) from e
+    if len(raw) < n:
+        raise RuntimeBackendError("load weights", f"{path}: header runs past the file")
+    return [name for name in json.loads(raw) if name != "__metadata__"]
+
+
 def load_safetensors(path: str | Path) -> dict[str, np.ndarray]:
     """Read every tensor of a safetensors file into numpy arrays. BF16
     tensors come back as float32 (exact: bf16 is the top half of f32)."""
