@@ -16,7 +16,9 @@ utterances fill several buckets go through both CLIs at f32:
   symbols), batch and single: the same units within one frame stride;
 - `compare_textgrids`: the same metrics on the same pairs;
 - the port's CLI targets cuda by default and exits non-zero where no CUDA
-  device is present; `--runtime onnx` exits non-zero.
+  device is present, `--runtime onnx` too; on the CPU `--runtime onnx`
+  exits non-zero where the directory has no model.onnx (its end-to-end
+  run is in tests/test_torch_port_onnx.py).
 """
 
 import json
@@ -268,7 +270,9 @@ def test_cli_exits_without_cuda_by_default(model_dir, dataset, monkeypatch):
     with pytest.raises(SystemExit, match="CUDA") as exc:
         port_run(args)
     assert exc.value.code not in (0, None)
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    with pytest.raises(SystemExit, match="CUDA"):
+        port_run(args + ["--runtime", "onnx"])
+    with pytest.raises(SystemExit, match="model.onnx"):
         port_run(args + ["--device", "cpu", "--runtime", "onnx"])
     assert not list(dataset.rglob("*.TextGrid"))
     res = subprocess.run(

@@ -11,11 +11,16 @@ definitions are compared one by one.
 
 Also: no module of `wav2vec2_tpu_torch/`, and not `chip_smoke.py`, imports
 jax, the JAX package, safetensors or transformers (the card's machine has
-none of them).
+none of them); and the ONNX runtime, the exporter, the train step and the
+parameter checkpoints import and run in a process where jax, safetensors,
+transformers, orbax, optax and onnxruntime cannot be imported.
 """
 
 import ast
 import difflib
+import subprocess
+import sys
+import textwrap
 from pathlib import Path
 
 import pytest
@@ -59,6 +64,31 @@ PORT_DIFFERENCES = {
     "cli/json_report_formatter.py": [],
     "cli/compare_textgrids.py": [],
     "models/presets.py": [],
+    "onnx/proto.py": [],
+    # the exporter reads the port's tree: every leaf to the host as f32
+    # numpy first, then the JAX exporter's graph node by node
+    "onnx/export.py": [
+        "+import torch",
+        "+def _host_f32(tree):",
+        "+    if isinstance(tree, dict):",
+        "+        return {k: _host_f32(v) for k, v in tree.items()}",
+        "+    if isinstance(tree, (list, tuple)):",
+        "+        return [_host_f32(v) for v in tree]",
+        "+    if isinstance(tree, torch.Tensor):",
+        "+        tree = tree.detach().cpu()",
+        "+        return tree.float().numpy() if tree.is_floating_point() else tree.numpy()",
+        "+    return tree",
+        "+",
+        "+    params = _host_f32(params)",
+    ],
+    # the ONNX backend's helpers, carried over as they are
+    "pipeline/onnx_runtime.py::_PRECISION_LABELS": [],
+    "pipeline/onnx_runtime.py::normalize_precision_label": [],
+    "pipeline/onnx_runtime.py::precision_from_config": [],
+    "pipeline/onnx_runtime.py::extract_raw_logits_f32": [],
+    "pipeline/onnx_runtime.py::execution_providers": [],
+    "pipeline/onnx_runtime.py::parse_onnx_output_shape": [],
+    "pipeline/onnx_runtime.py::raw_logits_to_log_probs": [],
     # the port's loggers live under wav2vec2_tpu_torch, not a child of
     # the JAX package's logger
     "utils/tracing.py": [
@@ -194,11 +224,12 @@ PORT_DIFFERENCES = {
 
 
 def _code_lines(path: Path, name: str | None = None) -> list[str]:
-    """The module's code (or its top-level definition `name`), parsed and
-    unparsed, without docstrings."""
+    """The module's code (or its top-level definition or assignment
+    `name`), parsed and unparsed, without docstrings."""
     tree = ast.parse(path.read_text(encoding="utf-8"))
     if name is not None:
-        tree = next(node for node in tree.body if getattr(node, "name", None) == name)
+        tree = next(node for node in tree.body if getattr(node, "name", None) == name
+                    or name in (getattr(t, "id", None) for t in getattr(node, "targets", ())))
     for node in ast.walk(tree):
         if isinstance(node, (ast.Module, ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
             body = node.body
@@ -235,3 +266,60 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_imports_no_jax(path):
     assert not _imported_roots(REPO / path) & {"jax", "jaxlib", "wav2vec2_tpu", "safetensors",
                                                 "transformers"}
+
+
+def test_onnx_and_training_run_without_jax_orbax_optax(tmp_path):
+    script = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "jaxlib", "safetensors", "transformers", "orbax", "optax",
+                     "onnxruntime"):
+            sys.modules[name] = None
+        import json
+        import numpy as np
+        import torch
+        from wav2vec2_tpu_torch import AlignmentInput, ForcedAlignerBuilder, Wav2Vec2Config
+        from wav2vec2_tpu_torch.config import Wav2Vec2ModelConfig
+        from wav2vec2_tpu_torch.models.params import init_params, params_from_jax
+        from wav2vec2_tpu_torch.models.params import params_to_hf_flat_dict
+        from wav2vec2_tpu_torch.onnx import export_ctc_model, save_model
+        from wav2vec2_tpu_torch.parallel import train
+        from wav2vec2_tpu_torch.pipeline.onnx_runtime import OnnxRuntimeBackend
+        from wav2vec2_tpu_torch.utils.checkpoint import (restore_params, save_params,
+                                                          save_safetensors)
+        from wav2vec2_tpu_torch.cli import export_onnx_model
+
+        d = {str(tmp_path)!r}
+        cfg_kw = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+                      intermediate_size=64, conv_dim=[16, 16], conv_kernel=[10, 3],
+                      conv_stride=[5, 2], num_conv_pos_embeddings=16,
+                      num_conv_pos_embedding_groups=4, pad_token_id=0, vocab_size=8,
+                      feat_extract_norm="group", conv_bias=False)
+        cfg = Wav2Vec2ModelConfig(**cfg_kw)
+        params = params_from_jax(init_params(cfg, 0))
+        save_safetensors(d + "/model.safetensors", params_to_hf_flat_dict(params, cfg))
+        open(d + "/config.json", "w").write(json.dumps(cfg_kw))
+        open(d + "/vocab.json", "w").write(json.dumps({{"<pad>": 0, "a": 1, "b": 2, "|": 3}}))
+        assert export_onnx_model.main(["--model-dir", d, "--verify", "--device", "cpu"]) == 0
+        backend = OnnxRuntimeBackend(d + "/model.onnx", cfg, device="cpu")
+        c = Wav2Vec2Config(d + "/model.onnx", d + "/config.json", d + "/vocab.json",
+                           device="cpu")
+        rng = np.random.default_rng(0)
+        out = ForcedAlignerBuilder(c).with_runtime_backend(backend).build().align(
+            AlignmentInput(16000, rng.normal(size=4000).astype(np.float32), "ab ba"))
+        assert [w.word for w in out.words] == ["ab", "ba"], out
+
+        state = train.init_train_state(params, train.make_optimizer(learning_rate=3e-3))
+        step = train.make_train_step(cfg, None, compute_dtype=torch.float32)
+        batch = (rng.normal(size=(2, 800)).astype(np.float32), np.full(2, 800, np.int32),
+                 rng.integers(1, 8, size=(2, 4)).astype(np.int32), np.full(2, 4, np.int32))
+        losses = [float(step(state, *batch)[1]) for _ in range(3)]
+        assert losses[-1] < losses[0], losses
+        save_params(d + "/ckpt", state.params)
+        back = restore_params(d + "/ckpt", like=state.params)
+        assert torch.equal(back["lm_head"]["kernel"], state.params["lm_head"]["kernel"])
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", script], cwd=str(REPO), capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")

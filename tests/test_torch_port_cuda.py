@@ -146,3 +146,21 @@ def test_int8_linear_on_the_card(m, k, n):
     on_card = quantize_linear_int8({"kernel": w.to(device)})
     on_host = quantize_linear_int8({"kernel": w})
     assert all(torch.equal(on_card[key].cpu(), on_host[key]) for key in ("kernel_q", "scale"))
+
+
+@pytest.mark.cuda
+def test_k5_refuses_inputs_that_require_grad_on_the_card():
+    """K5 writes its output through a raw pointer and has no backward: with
+    grad mode on and an input requiring grad it raises instead of returning
+    a result cut off from the graph, and launches nothing."""
+    device = _card()
+    q = torch.randn(1, 2, 64, 64, device=device, dtype=torch.bfloat16, requires_grad=True)
+    k = v = q.detach()
+    before = flash_attention.launches["k5"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention.flash_attention(q, k, v)
+    assert flash_attention.launches["k5"] == before
+    with torch.no_grad():
+        out = flash_attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["k5"] == before + 1 and not out.requires_grad

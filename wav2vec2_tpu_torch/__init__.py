@@ -21,7 +21,10 @@ readers (FLAC, WAV, the LibriSpeech layout) and reports (JSON, perf
 JSONL, TextGrid, SRT/VTT). Online alignment (`OnlineAligner`, loaded
 lazily), the serving daemon (`python -m wav2vec2_tpu_torch.serve`), int8
 serving (`BatchAligner(quantize_int8=True)`) and the environment check
-(`python -m wav2vec2_tpu_torch.doctor`).
+(`python -m wav2vec2_tpu_torch.doctor`). The ONNX runtime (`onnx/`,
+`pipeline/onnx_runtime.py`: the exported graph run as torch operations on
+the card, the CLI's `--runtime onnx`) and CTC training on one device
+(`parallel/train.py`, `utils/checkpoint.save_params` / `restore_params`).
 """
 
 from .align.longform import align_longform

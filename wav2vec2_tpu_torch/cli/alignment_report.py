@@ -14,8 +14,11 @@ repeats, median/mean aggregate), with per-stage memory on repeat 0.
 
 Where the port differs from the JAX CLI: `--device` defaults to `cuda` and
 accepts `cpu`; asked for `cuda` without a CUDA device, the CLI exits
-non-zero and never carries on on the CPU. `--runtime` is `torch`
-(`onnx` exits non-zero: that runtime is not ported yet). `--torch-profile
+non-zero and never carries on on the CPU. `--runtime` is `torch` or
+`onnx`; `onnx` runs the exported graph (`--onnx-model`, default
+MODEL_DIR/model.onnx) through `pipeline.onnx_runtime.OnnxRuntimeBackend` on
+`--device`, one utterance at a time (the batch engine is switched off, as
+in the JAX CLI). `--torch-profile
 DIR` writes a `torch.profiler` trace of the perf loop where the JAX CLI
 has `--jax-profile`.
 
@@ -87,13 +90,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--runtime", default=_env("RUNTIME", "torch"), choices=["torch", "onnx"],
         help="model runtime backend (the reference CLI's candle/onnx "
-             "selection, alignment_report.rs:180-249); onnx is not ported "
-             "yet and exits non-zero",
+             "selection, alignment_report.rs:180-249); onnx runs the "
+             "exported graph on --device, one utterance at a time",
     )
     p.add_argument(
         "--onnx-model", default=_env("ONNX_MODEL"),
-        help="path to the exported .onnx graph, for --runtime onnx (not "
-             "ported yet)",
+        help="path to the exported .onnx graph, for --runtime onnx "
+             "(default MODEL_DIR/model.onnx)",
     )
     p.add_argument(
         "--compute-dtype", default=_env("COMPUTE_DTYPE", "float32"),
@@ -200,11 +203,15 @@ def _select_device(name: str) -> torch.device:
 
 def _load_model(args):
     """Model dir must contain weights + config.json + vocab.json
-    (alignment_report.rs:964-1006)."""
+    (alignment_report.rs:964-1006). The onnx runtime needs the .onnx graph
+    instead of safetensors weights."""
     model_dir = Path(args.model_dir)
     config_path = _require(model_dir / "config.json", "config.json")
     vocab_path = _require(model_dir / "vocab.json", "vocab.json")
-    weights_path = _require(model_dir / "model.safetensors", "model.safetensors")
+    if args.runtime == "onnx":
+        weights_path = _require(_onnx_path(args, model_dir), "model.onnx")
+    else:
+        weights_path = _require(model_dir / "model.safetensors", "model.safetensors")
     model_cfg = Wav2Vec2ModelConfig.load(config_path)
     # phoneme mode looks symbols up verbatim — keep multi-codepoint keys
     vocab = load_vocab(
@@ -255,8 +262,26 @@ def _with_units(builder, units):
     return builder
 
 
+def _onnx_path(args, model_dir: Path) -> Path:
+    return Path(args.onnx_model) if args.onnx_model else model_dir / "model.onnx"
+
+
 def _make_single_aligner(args, model_dir, model_cfg):
     from ..pipeline.builder import ForcedAlignerBuilder
+
+    if args.runtime == "onnx":
+        from ..pipeline.onnx_runtime import OnnxRuntimeBackend
+
+        onnx_path = _onnx_path(args, model_dir)
+        backend = OnnxRuntimeBackend(onnx_path, model_cfg, device=args.device)
+        cfg = Wav2Vec2Config(
+            model_path=str(onnx_path),
+            config_path=str(model_dir / "config.json"),
+            vocab_path=str(model_dir / "vocab.json"),
+            device=args.device,
+        )
+        builder = ForcedAlignerBuilder(cfg).with_runtime_backend(backend)
+        return _with_units(builder, args.units).build()
 
     cfg = Wav2Vec2Config(
         model_path=str(model_dir / "model.safetensors"),
@@ -274,11 +299,10 @@ def _make_single_aligner(args, model_dir, model_cfg):
 def run(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     t_start = time.perf_counter()
-    if args.runtime == "onnx":
-        raise SystemExit(
-            "error: --runtime onnx is not ported to PyTorch yet "
-            "(ROADMAP.md §1 item 8); use --runtime torch"
-        )
+    if args.runtime == "onnx" and args.batch:
+        # the ONNX backend is single-utterance (batch must be 1, matching
+        # the reference's onnx runtime); the batch engine is torch-only
+        args.batch = False
 
     from ..utils.tracing import configure_logging
 

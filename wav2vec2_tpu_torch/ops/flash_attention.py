@@ -5,7 +5,9 @@ T to `pad_len(T)` (padded keys masked with −inf, padded query rows sliced
 off on return), then, for CUDA tensors, launches a hand-written kernel of
 `csrc/flash_attention.cu` (the port of `_attn_kernel`) or raises; for CPU
 tensors it runs the plain version `ops.flash_attention_ref.attention`.
-There is no fallback from the kernel to the plain version. The kernel
+There is no fallback from the kernel to the plain version. K5 has no
+backward, so `flash_attention` raises where autograd would record it (grad
+mode on and an input requiring grad), on either device. The kernel
 follows the dtype (`kernel_for`): bf16 runs on the tensor cores
 (`flash_attention_mma_kernel`: bf16 operands, f32 accumulation, as the
 TPU's bf16 path), f32 as exact FMAs on the CUDA cores
@@ -255,6 +257,13 @@ def flash_attention(
     Transformer-XL term pass q_pos (q + pos_bias_v, shaped as q) and rel_r
     from `rel_table_rev` at T_pad = pad_len(T). Returns [B, NH, T, hd] in
     q.dtype."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (q, k, v, mask_bias, q_pos, rel_r)):
+        # the kernel writes its output through a raw pointer, so a gradient
+        # through it would be lost without a word; neither package has a
+        # backward kernel, and the train step runs attention without it
+        raise RuntimeError("flash_attention (K5) has no backward: call it under "
+                           "torch.no_grad() or with inputs that do not require grad")
     t = q.shape[2]
     q, k, v, mask, q_pos = pad_inputs(q, k, v, mask_bias, q_pos, rel_r)
     if q.device.type == "cpu":

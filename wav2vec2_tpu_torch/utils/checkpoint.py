@@ -9,6 +9,13 @@ each tensor name to {"dtype", "shape", "data_offsets": [begin, end]}
 `save_safetensors` is the counterpart of `wav2vec2_tpu.utils.checkpoint.
 save_safetensors`: it writes a flat {name: array} dict, for example the HF
 names that `models.params.params_to_hf_flat_dict` produces.
+
+`save_params` / `restore_params` checkpoint a parameter tree (the
+counterparts of the JAX package's orbax pair, which is JAX-only): the
+flattened tree goes into `params.safetensors` under its tree paths joined
+with "/", and `tree.json` beside it holds the tree's structure and each
+leaf's torch dtype. bf16 leaves, which numpy has no type for, are stored as
+their 16-bit patterns, so the round trip is bit-exact for every dtype.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import struct
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..errors import IoError, RuntimeBackendError
 
@@ -114,3 +122,78 @@ def save_safetensors(path: str | Path, tensors: dict[str, np.ndarray]) -> None:
         f.write(head)
         for buf in buffers:
             f.write(buf)
+
+
+PARAMS_FILE = "params.safetensors"
+TREE_FILE = "tree.json"
+
+
+def _flatten(tree, prefix: str, leaves: dict) -> object:
+    """The tree's structure (dicts and lists, each leaf replaced by its
+    path), filling `leaves` {path: tensor}."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            if "/" in k:
+                raise ValueError(f"tree key {k!r} holds '/', the path separator")
+            out[k] = _flatten(v, f"{prefix}{k}/", leaves)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [_flatten(v, f"{prefix}{i}/", leaves) for i, v in enumerate(tree)]
+    path = prefix[:-1]
+    leaves[path] = tree
+    return path
+
+
+def save_params(path: str | Path, params: dict) -> None:
+    """Write a parameter tree of torch tensors into the directory `path`."""
+    leaves: dict[str, torch.Tensor] = {}
+    structure = _flatten(params, "", leaves)
+    arrays, dtypes = {}, {}
+    for key, t in leaves.items():
+        t = t.detach().cpu()
+        dtypes[key] = str(t.dtype).removeprefix("torch.")
+        arrays[key] = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+    path = Path(path)
+    save_safetensors(path / PARAMS_FILE, arrays)
+    (path / TREE_FILE).write_text(json.dumps({"tree": structure, "dtypes": dtypes}))
+
+
+def restore_params(path: str | Path, like: dict | None = None) -> dict:
+    """Read a tree written by `save_params`, on the host; with `like`, each
+    leaf must have the shape and dtype of `like`'s leaf at its path, and goes
+    to that leaf's device."""
+    path = Path(path)
+    try:
+        meta = json.loads((path / TREE_FILE).read_text())
+    except OSError as e:
+        raise IoError("read checkpoint", e) from e
+    arrays = load_safetensors(path / PARAMS_FILE)
+    like_leaves: dict[str, torch.Tensor] = {}
+    if like is not None:
+        _flatten(like, "", like_leaves)
+        if set(like_leaves) != set(meta["dtypes"]):
+            raise ValueError(
+                f"checkpoint {path}: its leaves differ from like's: missing "
+                f"{sorted(set(like_leaves) - set(meta['dtypes']))}, extra "
+                f"{sorted(set(meta['dtypes']) - set(like_leaves))}")
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [build(v) for v in node]
+        dtype = getattr(torch, meta["dtypes"][node])
+        t = torch.from_numpy(arrays[node])
+        if dtype == torch.bfloat16:
+            t = t.view(torch.bfloat16)
+        if node in like_leaves:
+            ref = like_leaves[node]
+            if tuple(t.shape) != tuple(ref.shape) or t.dtype != ref.dtype:
+                raise ValueError(
+                    f"checkpoint {path}: {node} is {t.dtype} {tuple(t.shape)}, like "
+                    f"wants {ref.dtype} {tuple(ref.shape)}")
+            t = t.to(ref.device)
+        return t
+
+    return build(meta["tree"])
