@@ -3167,13 +3167,16 @@ def detach_tree(tree):
     return tree.detach()
 
 
-def tree_grads(tree, prefix=""):
-    """{path: gradient on the host} of a tree of leaves after backward()."""
+def tree_grads(tree, prefix="", whole=lambda g: g):
+    """{path: gradient on the host} of a tree of leaves after backward();
+    `whole` makes a DTensor's gradient whole first."""
     if isinstance(tree, dict):
-        return {k: g for key, v in tree.items() for k, g in tree_grads(v, f"{prefix}{key}/").items()}
+        return {k: g for key, v in tree.items()
+                for k, g in tree_grads(v, f"{prefix}{key}/", whole).items()}
     if isinstance(tree, list):
-        return {k: g for i, v in enumerate(tree) for k, g in tree_grads(v, f"{prefix}{i}/").items()}
-    return {prefix[:-1]: tree.grad.detach().cpu()}
+        return {k: g for i, v in enumerate(tree)
+                for k, g in tree_grads(v, f"{prefix}{i}/", whole).items()}
+    return {prefix[:-1]: whole(tree.grad.detach()).cpu()}
 
 
 def grad_error(got, want):
@@ -3348,6 +3351,504 @@ def run_training(device, card, cfg, params_np):
           f"1e-4), no K5 under "
           f"{fa.FORCE_ENV}=1")
     return totals
+
+
+# --- the device mesh ------------------------------------------------------
+MESH_BATCH, MESH_SECONDS = 8, 10.0  # (m2)'s batch path, base and conformer
+MESH_TRAIN_ROWS, MESH_TRAIN_SECONDS = 4, 4.0  # (m2)'s train step
+MESH_LONGFORM_MINUTES = 3.0
+MESH_RANKS = 2
+MESH_CHILD_TIMEOUT_S = 420
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def synced_ms(fn):
+    """(fn(), wall ms) with the card synchronised on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def submit_and_group(aligner, seqs, inputs):
+    """One padded batch through `aligner`: (handles, words per row)."""
+    handles = aligner.submit_padded_batch(*inputs, return_log_probs=True)
+    return handles, [word_tuples_ms(o.words) for o in aligner.group_batch(seqs, handles)]
+
+
+def run_mesh_m1(device, card, cfg, params_np, vocab):
+    """(m1) A world of one rank under NCCL and the mesh (1×1), wav2vec2-base
+    at full width and depth: `BatchAligner(mesh=)` on 32 × 10 s bf16 against
+    `mesh=None`, paths and log-probs bit-equal, words and ms equal, both
+    timed (submit and group, 3 repeats); `make_train_step(mesh=)` on 32 ×
+    10 s bf16 beside the unsharded step from the same weights, both timed,
+    both losses printed (finite, within 1e-3 relative). Returns the launch
+    counts of the mesh runs."""
+    import torch
+    import torch.distributed as dist
+
+    from wav2vec2_tpu_torch.models.params import params_from_jax
+    from wav2vec2_tpu_torch.parallel import mesh as pmesh
+    from wav2vec2_tpu_torch.parallel import train
+    from wav2vec2_tpu_torch.parallel.batching import BatchAligner
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    totals: dict[str, int] = {}
+    try:
+        mesh = pmesh.make_mesh(model=1, device="cuda")
+        seqs, audio, a_l, tokens, s_l = batch_inputs(np.random.default_rng(0), vocab, 32, 10.0)
+        inputs = [torch.from_numpy(a).to(device) for a in (audio, a_l, tokens, s_l)]
+        aligners = {
+            "mesh=None": BatchAligner(cfg, params_from_jax(params_np, device=device), vocab,
+                                      "bfloat16", device=device, normalize_on_device=True),
+            "mesh (1x1)": BatchAligner(cfg, params_from_jax(params_np, device=device), vocab,
+                                       "bfloat16", device=device, normalize_on_device=True,
+                                       mesh=mesh),
+        }
+        runs, times = {}, {k: [] for k in aligners}
+        for name in (*aligners, *reversed(aligners), *aligners):
+            (out, counts), ms = synced_ms(lambda: counted(
+                lambda: submit_and_group(aligners[name], seqs, inputs)))
+            runs.setdefault(name, out)
+            times[name].append(ms)
+            if name != "mesh=None":
+                _add_counts(totals, counts)
+        (h0, w0), (h1, w1) = runs["mesh=None"], runs["mesh (1x1)"]
+        if not (torch.equal(h0[0], h1[0]) and torch.equal(h0[-1], h1[-1]) and w0 == w1):
+            raise AssertionError("gate (m1): the (1x1) mesh's paths, log-probs or words differ "
+                                 "from mesh=None's")
+        if totals.get("k1", 0) < 1:
+            raise AssertionError(f"gate (m1): the mesh batch launched {totals}")
+        if not torch.equal(h1[0], plain_version("k1", h1[-1].contiguous(), inputs[2], h1[1],
+                                                inputs[3])):
+            raise AssertionError("gate (m1): the mesh batch's paths are not K1's plain version")
+        t_none, t_mesh = (statistics.median(times[k]) for k in aligners)
+        print(f"mesh (m1): BatchAligner(mesh=(1x1)) under NCCL, 32 x 10 s bf16: paths and "
+              f"log-probs bit-equal to mesh=None, words and ms equal, paths == K1's plain "
+              f"version; submit + group "
+              f"{t_mesh:.1f} ms vs {t_none:.1f} ms (median of 3, host clock, synchronised): "
+              f"the mesh path's overhead {t_mesh - t_none:+.1f} ms "
+              f"({(t_mesh / t_none - 1) * 100:+.1f}%) {card}")
+        del aligners, runs, h0, h1
+
+        rng = np.random.default_rng(21)
+        n = int(TRAIN_SECONDS * SAMPLE_RATE)
+        batch = (rng.normal(size=(TRAIN_BATCH, n)).astype(np.float32),
+                 np.full(TRAIN_BATCH, n, np.int32),
+                 rng.integers(5, cfg.vocab_size, size=(TRAIN_BATCH, 120)).astype(np.int32),
+                 rng.integers(80, 121, size=TRAIN_BATCH).astype(np.int32))
+        losses, step_ms = {}, {}
+        for name in ("unsharded", "mesh (1x1)"):
+            sharded = name != "unsharded"
+            tree = params_from_jax(params_np, device=device)
+            state = train.init_train_state(pmesh.shard_params(tree, mesh) if sharded else tree,
+                                           train.make_optimizer(learning_rate=TRAIN_LR))
+            step = train.make_train_step(cfg, None, mesh=mesh if sharded else None,
+                                         compute_dtype=torch.bfloat16)
+            args = (pmesh.distribute_rows(mesh, *batch) if sharded else
+                    [torch.from_numpy(a).to(device) for a in batch])
+            ms, vals = [], []
+            for _ in range(3):
+                ((state, loss), counts), t = synced_ms(lambda: counted(
+                    lambda: step(state, *args)))
+                vals.append(float(pmesh.full(loss)))
+                ms.append(t)
+                if counts["k5"]:
+                    raise AssertionError(f"gate (m1): a train step launched K5: {counts}")
+            losses[name], step_ms[name] = vals, ms
+            del state, step, tree, args
+        first = [losses[k][0] for k in losses]
+        if not (np.isfinite(sum(losses.values(), [])).all()
+                and abs(first[1] - first[0]) <= 1e-3 * abs(first[0])):
+            raise AssertionError(f"gate (m1): train losses {losses}")
+        print(f"mesh (m1): make_train_step(mesh=(1x1)) 32 x 10 s bf16: losses "
+              f"{[round(x, 4) for x in losses['mesh (1x1)']]} vs unsharded "
+              f"{[round(x, 4) for x in losses['unsharded']]}; step "
+              f"{statistics.median(step_ms['mesh (1x1)'][1:]):.1f} ms vs "
+              f"{statistics.median(step_ms['unsharded'][1:]):.1f} ms (host clock, steps 2-3) "
+              f"{card}")
+    finally:
+        dist.destroy_process_group()
+    return totals
+
+
+def mesh_rank(rank: int, world: int, tmp: str):
+    """One rank of (m2): gloo on the one card, the phases of `mesh_phases`;
+    what it got goes to `tmp`/rank<r>.json."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world)
+    try:
+        result = mesh_phases(rank)
+    except Exception:  # the parent reads it and fails the smoke
+        result = {"error": traceback.format_exc()}
+    with open(Path(tmp) / f"rank{rank}.json", "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+
+
+def _k5_tiles():
+    """Wrap K5's launch to record each launch's q shape and keep the first
+    launch's inputs; returns (shapes, first inputs, undo)."""
+    from wav2vec2_tpu_torch.ops import flash_attention as fa
+
+    shapes, first, real = [], [], fa._launch
+
+    def launch(q, k, v, mask, q_pos, rel_r, scale):
+        shapes.append(tuple(q.shape))
+        if not first:
+            first.append((q, k, v, mask, q_pos, rel_r, scale))
+        return real(q, k, v, mask, q_pos, rel_r, scale)
+
+    fa._launch = launch
+    return shapes, first, lambda: setattr(fa, "_launch", real)
+
+
+def mesh_phases(rank: int) -> dict:
+    """(m2) on this rank: the batch path (wav2vec2-base f32 at (2×1), int8
+    serving of it at (1×2), the conformer rel-pos large f32 with K5 at
+    (2×1) and (1×2)), `align_longform`
+    at (2×1) and `make_train_step` at (2×1) and (1×2), each against the
+    unsharded run on this rank, with its launch counts, times and each
+    kernel held against its plain version."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from wav2vec2_tpu_torch import align_longform
+    from wav2vec2_tpu_torch.align import longform
+    from wav2vec2_tpu_torch.align.tokenization import build_token_sequence_case_aware
+    from wav2vec2_tpu_torch.config import Wav2Vec2ModelConfig
+    from wav2vec2_tpu_torch.models.params import init_params, params_from_jax
+    from wav2vec2_tpu_torch.ops import flash_attention as fa
+    from wav2vec2_tpu_torch.ops import flash_attention_ref, viterbi_cuda
+    from wav2vec2_tpu_torch.parallel import mesh as pmesh
+    from wav2vec2_tpu_torch.parallel import train
+    from wav2vec2_tpu_torch.parallel.batching import BatchAligner
+
+    device = torch.device("cuda", 0)
+    vocab = make_vocab()
+    meshes = {"2x1": pmesh.make_mesh(model=1, device="cuda"),
+              "1x2": pmesh.make_mesh(model=2, device="cuda")}
+    out: dict = {"counts": {}, "max_err": {}, "lines": []}
+
+    def count(name, counts):
+        out["counts"][name] = counts
+
+    # --- the batch path, wav2vec2-base f32 at (2x1) -----------------------
+    cfg = Wav2Vec2ModelConfig.from_dict(BASE_CONFIG)
+    params_np = init_params(cfg, seed=0)
+    seqs, audio, a_l, tokens, s_l = batch_inputs(np.random.default_rng(0), vocab, MESH_BATCH,
+                                                 MESH_SECONDS)
+    inputs = [torch.from_numpy(a).to(device) for a in (audio, a_l, tokens, s_l)]
+    plain = BatchAligner(cfg, params_from_jax(params_np, device=device), vocab, "float32",
+                         device=device, normalize_on_device=True)
+    submit_and_group(plain, seqs, inputs)  # first call: cuBLAS's and the allocator's set-up
+    (ref, ref_words), ref_ms = synced_ms(lambda: submit_and_group(plain, seqs, inputs))
+    sharded = BatchAligner(cfg, params_from_jax(params_np, device=device), vocab, "float32",
+                           device=device, normalize_on_device=True, mesh=meshes["2x1"])
+    submit_and_group(sharded, seqs, inputs)  # first call: DTensor's rule caches
+    ((got, words), counts), ms = synced_ms(lambda: counted(
+        lambda: submit_and_group(sharded, seqs, inputs)))
+    lp_err = float((got[-1] - ref[-1]).abs().max())
+    if not (torch.equal(got[0], ref[0]) and words == ref_words and lp_err <= 1e-4):
+        raise AssertionError(f"gate (m2) base (2x1): paths equal {torch.equal(got[0], ref[0])}, "
+                             f"words equal {words == ref_words}, log-probs {lp_err:.3g} "
+                             "(bound 1e-4)")
+    k1 = viterbi_cuda.viterbi_batch(got[-1].contiguous(), inputs[2], got[1], inputs[3], tier="k1")
+    if not torch.equal(k1, plain_version("k1", got[-1].contiguous(), inputs[2], got[1],
+                                         inputs[3])) or counts["k1"] < 1:
+        raise AssertionError(f"gate (m2) base (2x1): K1 vs its plain version, launches {counts}")
+    out["max_err"]["k1"] = 0.0
+    count("base (2x1)", counts)
+    out["lines"].append(
+        f"base f32 (2x1), {MESH_BATCH} x {MESH_SECONDS:g} s: paths equal, words and ms equal, "
+        f"log-probs {lp_err:.3g} from the unsharded run; K1 == its plain version; this "
+        f"rank's launches {counts}; submit + group {ms:.1f} ms vs unsharded {ref_ms:.1f} ms")
+    del plain, sharded, ref, got
+
+    # --- int8 serving at (1x2), base f32: the int32 partial sums ----------
+    plain = BatchAligner(cfg, params_from_jax(params_np, device=device), vocab, "float32",
+                         device=device, normalize_on_device=True, quantize_int8=True)
+    submit_and_group(plain, seqs, inputs)
+    (ref, ref_words), ref_ms = synced_ms(lambda: submit_and_group(plain, seqs, inputs))
+    sharded = BatchAligner(cfg, pmesh.shard_params(params_np, meshes["1x2"]), vocab, "float32",
+                           device=device, normalize_on_device=True, quantize_int8=True,
+                           mesh=meshes["1x2"])
+    submit_and_group(sharded, seqs, inputs)
+    comm = CommDebugMode()
+    with comm:
+        ((got, words), counts), ms = synced_ms(lambda: counted(
+            lambda: submit_and_group(sharded, seqs, inputs)))
+    lp_err = float((got[-1] - ref[-1]).abs().max())
+    lp_got = got[-1].contiguous()
+    if not torch.equal(got[0], plain_version("k1", lp_got, inputs[2], got[1], inputs[3])):
+        raise AssertionError("gate (m2) int8 (1x2): the sharded paths are not K1's plain "
+                             "version on the sharded log-probs")
+    agree = tie_agreement(got, ref, inputs[2], words, ref_words)
+    if not (lp_err <= 1e-4 and agree["ok"] and counts["k1"] >= 1):
+        raise AssertionError(f"gate (m2) int8 (1x2): log-probs {lp_err:.3g} (bound 1e-4), "
+                             f"{agree}, launches {counts}")
+    count("int8 (1x2)", counts)
+    comms = {str(c).split(".")[-1]: n for c, n in comm.get_comm_counts().items()}
+    out["lines"].append(
+        f"int8 base f32 (1x2), {MESH_BATCH} x {MESH_SECONDS:g} s: log-probs {lp_err:.3g} from "
+        f"the unsharded int8 run; paths == K1's plain version; {agree['text']}; DTensor "
+        f"collectives {comms}; submit + group {ms:.1f} ms vs unsharded {ref_ms:.1f} ms")
+    del plain, sharded, ref, got
+
+    # --- the conformer rel-pos large f32 with K5 at (2x1) and (1x2) -------
+    ccfg = Wav2Vec2ModelConfig.from_dict(CONFORMER_CONFIG)
+    cnp = conformer_params(ccfg, seed=10)
+    plain = BatchAligner(ccfg, params_from_jax(cnp, device=device), vocab, "float32",
+                         device=device, normalize_on_device=True, use_flash_attention=True)
+    submit_and_group(plain, seqs, inputs)
+    (ref, ref_words), ref_ms = synced_ms(lambda: submit_and_group(plain, seqs, inputs))
+    del plain
+    nh, hd = ccfg.num_attention_heads, ccfg.hidden_size // ccfg.num_attention_heads
+    t_pad = 512
+    want_tile = {"2x1": (MESH_BATCH // MESH_RANKS, nh, t_pad, hd),
+                 "1x2": (MESH_BATCH, nh // MESH_RANKS, t_pad, hd)}
+    for key, mesh in meshes.items():
+        tree = params_from_jax(cnp, device=device)
+        params = pmesh.shard_params(tree, mesh) if key == "1x2" else tree
+        sharded = BatchAligner(ccfg, params, vocab, "float32", device=device,
+                               normalize_on_device=True, use_flash_attention=True, mesh=mesh)
+        submit_and_group(sharded, seqs, inputs)
+        shapes, first, undo = _k5_tiles()
+        comm = CommDebugMode()
+        try:
+            with comm:
+                ((got, words), counts), ms = synced_ms(lambda: counted(
+                    lambda: submit_and_group(sharded, seqs, inputs)))
+        finally:
+            undo()
+        lp_err = float((got[-1] - ref[-1]).abs().max())
+        if counts["k5"] != ccfg.num_hidden_layers or set(shapes) != {want_tile[key]}:
+            raise AssertionError(f"gate (m2) conformer ({key}): K5 launched {counts['k5']} "
+                                 f"times on tiles {set(shapes)}; want "
+                                 f"{ccfg.num_hidden_layers} on {want_tile[key]}")
+        lp_got = got[-1].contiguous()
+        k1 = viterbi_cuda.viterbi_batch(lp_got, inputs[2], got[1], inputs[3], tier="k1")
+        if not (torch.equal(k1, got[0]) and torch.equal(
+                k1, plain_version("k1", lp_got, inputs[2], got[1], inputs[3]))):
+            raise AssertionError(f"gate (m2) conformer ({key}): the sharded paths are not "
+                                 "K1's plain version on the sharded log-probs")
+        agree = tie_agreement(got, ref, inputs[2], words, ref_words)
+        if not (lp_err <= 1e-3 and agree["ok"]):
+            raise AssertionError(f"gate (m2) conformer ({key}): log-probs {lp_err:.3g} (bound "
+                                 f"1e-3), {agree}")
+        q, k, v, mask, q_pos, rel_r, scale = first[0]
+        with torch.no_grad():
+            kern = fa._launch(q, k, v, mask, q_pos, rel_r, scale)
+            want = flash_attention_ref.attention(q, k, v, mask, q_pos=q_pos, rel_r=rel_r,
+                                                 scale=scale)
+        k5_err = float((kern - want).abs().max()) / float(want.abs().max())
+        if k5_err > FLASH_REL_BOUND["float32"]:
+            raise AssertionError(f"gate (m2) conformer ({key}): K5 on a local tile vs its plain "
+                                 f"version {k5_err:.3g}")
+        out["max_err"]["k5"] = max(out["max_err"].get("k5", 0.0), k5_err)
+        count(f"conformer ({key})", counts)
+        comms = {str(c).split(".")[-1]: n for c, n in comm.get_comm_counts().items()}
+        out["lines"].append(
+            f"conformer rel-pos large f32 ({key}), {MESH_BATCH} x {MESH_SECONDS:g} s: K5 "
+            f"{counts['k5']} launches on this rank, each on a {want_tile[key]} tile, vs its "
+            f"plain version {k5_err:.3g} relative; log-probs {lp_err:.3g} from the unsharded "
+            f"K5 forward; paths == K1's plain version; {agree['text']}; DTensor collectives "
+            f"{comms}; submit + group {ms:.1f} ms vs unsharded {ref_ms:.1f} ms")
+        del sharded, params, tree, got
+    del ref
+
+    # --- align_longform at (2x1), 3 min of wav2vec2-base f32 --------------
+    rng = np.random.default_rng(4)
+    la = rng.normal(size=int(MESH_LONGFORM_MINUTES * 60 * SAMPLE_RATE)).astype(np.float32)
+    text = " ".join(LONGFORM_WORDS * int(MESH_LONGFORM_MINUTES * 15))
+    base = params_from_jax(params_np, device=device)
+    want, ref_ms = synced_ms(lambda: align_longform(la, text, base, cfg, vocab,
+                                                    compute_dtype="float32", device=device))
+    (got, counts), ms = synced_ms(lambda: counted(lambda: align_longform(
+        la, text, base, cfg, vocab, compute_dtype="float32", device=device,
+        mesh=meshes["2x1"])))
+    if word_tuples_ms(got.words) != word_tuples_ms(want.words):
+        raise AssertionError("gate (m2) long-form (2x1): words or ms differ from mesh=None's")
+    seq = build_token_sequence_case_aware(text, vocab, 0, vocab.get("|", 0))
+    with torch.inference_mode(False), torch.no_grad():
+        spans, chunks = longform.sharded_chunk_log_probs(
+            longform.normalize_audio(la), pmesh.place_params(base, meshes["2x1"]), cfg,
+            30 * SAMPLE_RATE, 5 * SAMPLE_RATE, torch.float32, 32, meshes["2x1"])
+    lp = longform.stitch_log_probs(chunks, spans, cfg.frame_stride_samples(),
+                                   cfg.conv_output_length(len(la)))
+    s_pad = -(-len(seq.tokens) // longform.TOKEN_MULTIPLE) * longform.TOKEN_MULTIPLE
+    tier = viterbi_cuda.select_tier(lp.shape[0], s_pad, lp.shape[1])
+    if counts[tier] != 1:
+        raise AssertionError(f"gate (m2) long-form: the DP took {tier}, launches {counts}")
+    tok = np.zeros(s_pad, np.int32)
+    tok[: len(seq.tokens)] = seq.tokens
+    args = (torch.from_numpy(lp)[None].to(device), torch.from_numpy(tok)[None].to(device),
+            torch.tensor([lp.shape[0]], dtype=torch.int32, device=device),
+            torch.tensor([len(seq.tokens)], dtype=torch.int32, device=device))
+    if not torch.equal(viterbi_cuda.viterbi_batch(*args, tier=tier), plain_version(tier, *args)):
+        raise AssertionError(f"gate (m2) long-form: {tier} vs its plain version")
+    out["max_err"][tier] = 0.0
+    count("long-form (2x1)", counts)
+    out["lines"].append(
+        f"align_longform (2x1), {MESH_LONGFORM_MINUTES:g} min f32, {len(got.words)} words: "
+        f"words and ms equal mesh=None's; the DP took {tier} (T={lp.shape[0]}, S_pad={s_pad}), "
+        f"== its plain version; {ms / 1e3:.2f} s vs mesh=None {ref_ms / 1e3:.2f} s")
+    del base
+
+    # --- make_train_step at (2x1) and (1x2), base f32 4 x 4 s -------------
+    rng = np.random.default_rng(23)
+    n = int(MESH_TRAIN_SECONDS * SAMPLE_RATE)
+    batch = (rng.normal(size=(MESH_TRAIN_ROWS, n)).astype(np.float32),
+             np.full(MESH_TRAIN_ROWS, n, np.int32),
+             rng.integers(5, cfg.vocab_size, size=(MESH_TRAIN_ROWS, 40)).astype(np.int32),
+             np.full(MESH_TRAIN_ROWS, 40, np.int32))
+    cfg_t = Wav2Vec2ModelConfig.from_dict({**BASE_CONFIG})
+    state = train.init_train_state(params_from_jax(params_np, device=device),
+                                   train.make_optimizer())
+    step = train.make_train_step(cfg_t, None, compute_dtype=torch.float32)
+    state, loss = step(state, *batch)
+    ref_loss, ref_grads = float(loss), tree_grads(state.params)
+    _, ref_ms = synced_ms(lambda: step(state, *batch))  # the second step, timed
+    del state
+    for key, mesh in meshes.items():
+        state = train.init_train_state(pmesh.shard_params(params_np, mesh),
+                                       train.make_optimizer())
+        step = train.make_train_step(cfg_t, None, mesh=mesh, compute_dtype=torch.float32)
+        comm = CommDebugMode()
+        with comm:
+            (state, loss), counts = counted(lambda: step(state, *batch))
+        got_loss = float(pmesh.full(loss))
+        grads = tree_grads(state.params, whole=pmesh.full)
+        (_, again), ms = synced_ms(lambda: counted(lambda: step(state, *batch)))
+        counts = {k: n + again[k] for k, n in counts.items()}
+        err, worst = grad_error(grads, ref_grads)
+        loss_err = abs(got_loss - ref_loss) / abs(ref_loss)
+        if not (loss_err <= 1e-5 and err <= 1e-4 and counts["k5"] == 0 and state.step == 1):
+            raise AssertionError(f"gate (m2) train ({key}): loss {loss_err:.3g} (bound 1e-5), "
+                                 f"gradients {err:.3g} at {worst} (bound 1e-4), launches "
+                                 f"{counts}")
+        count(f"train ({key})", counts)
+        comms = {str(c).split(".")[-1]: n for c, n in comm.get_comm_counts().items()}
+        out["lines"].append(
+            f"make_train_step ({key}), base f32 {MESH_TRAIN_ROWS} x {MESH_TRAIN_SECONDS:g} s: "
+            f"loss {got_loss:.5f} vs {ref_loss:.5f} ({loss_err:.2g} relative), gradients "
+            f"{err:.3g} at worst ({worst}), no K5; DTensor collectives {comms}; step "
+            f"{ms:.0f} ms vs unsharded {ref_ms:.0f} ms (host clock, the second step)")
+        del state
+    return out
+
+
+def tie_agreement(got, ref, tokens, words, ref_words) -> dict:
+    """The sharded batch's alignment against the unsharded one's where
+    their log-probs differ by f32 rounding (the sum over heads split over
+    'model' adds in another order): the word sequences must be equal, and
+    every row whose path differs must be a tie, its path scoring on the
+    unsharded log-probs within the bound the difference allows of the
+    unsharded (optimal) path's. Exactly: if |Δ| <= e_t at frame t, each
+    path's score moves by at most Σ e_t, so the sharded optimum loses at
+    most 2·Σ e_t on the unsharded log-probs; the f32 sums of the DP add at
+    most 2·T·2⁻²⁴·|score|. Returns {"ok", "text"} with the rows whose paths
+    differ, the worst gap against its bound and the boundaries' agreement
+    (exact, within one frame)."""
+    import torch
+
+    paths, t_lens = got[0].long(), got[1]
+    lp_ref, lp_got = ref[-1].double(), got[-1].double()
+    tok = tokens.long()
+    same_words = [[w[0] for w in a] for a in words] == [[w[0] for w in a] for a in ref_words]
+    ok = same_words
+    differ, worst = [], None
+    for j in range(paths.shape[0]):
+        t = int(t_lens[j])
+        if torch.equal(paths[j, :t], ref[0][j, :t].long()):
+            continue
+        frames = torch.arange(t, device=paths.device)
+
+        def score(path, lp=lp_ref[j]):
+            return float(lp[frames, tok[j, path[:t]]].sum())
+
+        best = score(ref[0][j].long())
+        gap = best - score(paths[j])
+        bound = (2 * float((lp_got[j, :t] - lp_ref[j, :t]).abs().amax(-1).sum())
+                 + 2 * t * 2.0 ** -24 * abs(best))
+        differ.append(j)
+        worst = max(worst or (gap, bound), (gap, bound), key=lambda x: x[0] - x[1])
+        ok = ok and gap <= bound
+    pairs = [(a, b) for row, ref_row in zip(words, ref_words) for a, b in zip(row, ref_row)]
+    exact = sum(a == b for a, b in pairs)
+    within = sum(max(abs(a[1] - b[1]), abs(a[2] - b[2])) <= 20 for a, b in pairs)
+    text = (f"word sequences {'equal' if same_words else 'DIFFER'}; rows whose path differs {differ}"
+            + (f" (worst score gap {worst[0]:.3g} on the unsharded log-probs, bound "
+               f"{worst[1]:.3g}: ties)" if differ else "")
+            + f"; boundaries {exact}/{len(pairs)} exact, {within}/{len(pairs)} within one frame")
+    return {"ok": ok, "text": text}
+
+
+def run_mesh_m2(card):
+    """(m2) Two processes on the one card under gloo (CUDA tensors), each a
+    rank of meshes (2×1) and (1×2), running `mesh_phases`; a child that
+    fails, exits non-zero or outlives MESH_CHILD_TIMEOUT_S fails the smoke
+    (every child is stopped). Returns (launch counts summed over the ranks,
+    max error per kernel)."""
+    import multiprocessing
+
+    import torch
+
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=mesh_rank, args=(r, MESH_RANKS, tmp))
+                 for r in range(MESH_RANKS)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + MESH_CHILD_TIMEOUT_S
+            for p in procs:
+                p.join(max(0.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        results = []
+        for r in range(MESH_RANKS):
+            path = Path(tmp) / f"rank{r}.json"
+            results.append(json.loads(path.read_text()) if path.exists() else None)
+    if codes != [0] * MESH_RANKS or any(r is None or "error" in r for r in results):
+        errors = [r.get("error") if r else "no result" for r in results]
+        raise AssertionError(f"gate (m2): the ranks exited {codes}: {errors}")
+    totals: dict[str, int] = {}
+    max_err: dict[str, float] = {}
+    for r, res in enumerate(results):
+        for phase, counts in res["counts"].items():
+            _add_counts(totals, counts)
+        for k, e in res["max_err"].items():
+            max_err[k] = max(max_err.get(k, 0.0), e)
+        for line in res["lines"]:
+            print(f"mesh (m2) rank {r}: {line} {card}")
+    print(f"mesh (m2): {MESH_RANKS} ranks under gloo on one card, "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start; launches over the ranks "
+          f"{totals}")
+    return totals, max_err
 
 
 def tree_leaves(tree):
@@ -3604,6 +4105,18 @@ def main() -> int:
     t_slice = time.perf_counter()
     add(run_training(device, card, cfg, params_np), "CTC training")
     print(f"time: the training phase took {time.perf_counter() - t_slice:.1f} s {card}")
+    # --- the device mesh: (m1) one rank under NCCL, (m2) two under gloo ----
+    t_slice = time.perf_counter()
+    add(run_mesh_m1(device, card, cfg, params_np, vocab), "the (1x1) mesh", "k1")
+    print(f"time: the (m1) mesh phase took {time.perf_counter() - t_slice:.1f} s {card}")
+    t_slice = time.perf_counter()
+    counts, mesh_err = run_mesh_m2(card)
+    add(counts, "the (m2) mesh ranks", "k1")
+    if counts.get("k5", 0) < 1:
+        raise AssertionError(f"the (m2) mesh ranks never launched k5: {counts}")
+    for tier, e in mesh_err.items():
+        max_err[tier] = max(max_err[tier], e)
+    print(f"time: the (m2) mesh phase took {time.perf_counter() - t_slice:.1f} s {card}")
     print(f"launch counts on the paths: {launches}")
     print(f"total smoke time {time.perf_counter() - t_start:.1f} s {card}")
 

@@ -317,6 +317,20 @@ def test_onnx_and_training_run_without_jax_orbax_optax(tmp_path):
         save_params(d + "/ckpt", state.params)
         back = restore_params(d + "/ckpt", like=state.params)
         assert torch.equal(back["lm_head"]["kernel"], state.params["lm_head"]["kernel"])
+
+        import torch.distributed as dist
+        from wav2vec2_tpu_torch.parallel import mesh
+        from wav2vec2_tpu_torch.parallel.batching import BatchAligner
+        dist.init_process_group("gloo", init_method="file://" + d + "/store", rank=0,
+                                world_size=1)
+        m = mesh.make_mesh(device="cpu")
+        assert m.mesh_dim_names == ("data", "model") and m.size() == 1
+        aligner = BatchAligner(cfg, mesh.shard_params(params, m), {{"a": 1, "b": 2, "|": 3}},
+                               compute_dtype="float32", device="cpu", mesh=m)
+        words = aligner.align_utterances([rng.normal(size=4000).astype(np.float32)],
+                                         ["ab ba"])[0].words
+        assert [w.word for w in words] == ["ab", "ba"], words
+        dist.destroy_process_group()
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=str(REPO), capture_output=True,

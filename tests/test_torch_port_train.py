@@ -17,7 +17,8 @@ by `params_from_jax`), on the CPU, at the 2-layer config of
   at f32 and bf16, and the bf16 GELU's backward equal to autograd through
   the A&S expression;
 - ports of `test_ctc_loss_decreases` and
-  `test_train_step_wavlm_adapter_family`; `mesh=` refused; the step never
+  `test_train_step_wavlm_adapter_family` (the `mesh=` step is in
+  tests/test_torch_port_mesh.py); the step never
   reaches K5, even forced, and `flash_attention` refuses inputs that
   require grad;
 - `save_params` / `restore_params`: bit-exact round trips of f32, bf16
@@ -287,11 +288,6 @@ def test_train_step_wavlm_adapter_family():
     assert not torch.allclose(before, gate.detach()), "gate params did not update"
     assert not torch.allclose(adapter_before, adapter.detach()), "adapter did not update"
     assert "rel_attn_embed" in state.params["encoder"]
-
-
-def test_train_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
-        train.make_train_step(TorchCfg(**CFG_KW), None, mesh=object())
 
 
 def test_train_step_never_reaches_k5(monkeypatch):

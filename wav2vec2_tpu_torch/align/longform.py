@@ -15,7 +15,13 @@ the DP reads the stitched matrix in place (`ops.viterbi_cuda` picks the tier;
 at 10–60 min that is K4), and grouping evidence comes back as four
 T-length vectors with the path in one copy.
 
-Not ported yet: the JAX `mesh` argument (chunk batch sharded over devices).
+`mesh` (`parallel.mesh`; every rank makes the same call) shards the chunk
+sub-batches over the mesh's 'data' axis, the sequence-parallel dimension
+of long-form audio (a sub-batch is padded to a multiple of the 'data' size
+with zero rows of length 1). Under a mesh the JAX package's mesh path is
+followed: the chunk log-probs are gathered whole, stitched on the host
+(`stitch_log_probs`), the DP runs on the device (`select_tier`), and the
+evidence is taken on the host (`frame_evidence_from_log_probs`).
 """
 
 from __future__ import annotations
@@ -28,9 +34,18 @@ from ..errors import InvalidInputError
 from ..models.ctc_model import log_softmax_logits, wav2vec2_forward
 from ..models.params import cast_compute_weights_bf16, params_to_device
 from ..ops.evidence import fused_path_evidence
+from ..ops.viterbi_cuda import viterbi_single
+from ..parallel.mesh import (
+    axis_size,
+    distribute_rows,
+    dtensor_no_grad,
+    full,
+    mesh_device,
+    place_params,
+)
 from ..pipeline.runtime import normalize_audio
 from ..types import AlignmentOutput
-from .grouping import group_into_words
+from .grouping import frame_evidence_from_log_probs, group_into_words
 from .tokenization import build_token_sequence_case_aware
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -194,6 +209,45 @@ def longform_log_probs(
                          model_cfg.conv_output_length(n))
 
 
+def sharded_chunk_log_probs(
+    normalized: np.ndarray,
+    params: dict,
+    model_cfg: Wav2Vec2ModelConfig,
+    chunk_samples: int,
+    overlap_samples: int,
+    compute_dtype: torch.dtype,
+    max_chunk_batch: int,
+    mesh,
+) -> tuple[list[tuple[int, int]], list[np.ndarray]]:
+    """The chunks' sample spans, and each chunk's [T_i, V] f32 log-probs on
+    the host: the chunk sub-batches sharded over `mesh`'s 'data' axis (pad
+    rows are zeros of length 1), their log-probs gathered whole. Audio no
+    longer than a chunk is one chunk."""
+    if len(normalized) <= chunk_samples:
+        spans = [(0, len(normalized))]
+    else:
+        spans = chunk_spans(len(normalized), chunk_samples, overlap_samples,
+                            model_cfg.frame_stride_samples())
+    n_pad = max(s1 - s0 for s0, s1 in spans)
+    data = axis_size(mesh, "data")
+    out = []
+    for lo in range(0, len(spans), max_chunk_batch):
+        rows = spans[lo:lo + max_chunk_batch]
+        b = -(-len(rows) // data) * data
+        batch = np.zeros((b, n_pad), np.float32)
+        lens = np.ones(b, np.int32)
+        for i, (s0, s1) in enumerate(rows):
+            batch[i, : s1 - s0] = normalized[s0:s1]
+            lens[i] = s1 - s0
+        audio, audio_lens = distribute_rows(mesh, batch, lens)
+        logits = wav2vec2_forward(params, audio, model_cfg, audio_lens=audio_lens,
+                                  compute_dtype=compute_dtype)
+        lps = full(log_softmax_logits(logits)).cpu().numpy()
+        out += [lps[i, : model_cfg.conv_output_length(int(lens[i]))]
+                for i in range(len(rows))]
+    return spans, out
+
+
 def device_params(params: dict, compute_dtype: str, device: torch.device) -> dict:
     """The parameter tree on `device`, compute weights in bf16 at bf16."""
     params = params_to_device(params, device)
@@ -214,9 +268,12 @@ def align_longform(
     hp: AlignerHyperParams | None = None,
     max_chunk_batch: int = 32,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> AlignmentOutput:
     """Align arbitrarily long audio against its transcript. `params` is the
-    port's parameter tree (models.params) on any device."""
+    port's parameter tree (models.params) on any device; under `mesh` its
+    DTensor leaves keep their placement and any other leaf is replicated,
+    on the mesh's device."""
     if compute_dtype not in _DTYPES:
         raise ValueError(f"unsupported compute dtype {compute_dtype!r}")
     hp = hp or AlignerHyperParams()
@@ -237,6 +294,16 @@ def align_longform(
             f"{min_frames} required"
         )
 
+    if mesh is not None:
+        with dtensor_no_grad():
+            path, evidence = _sharded_path_evidence(
+                normalize_audio(audio), seq, params, model_cfg, int(chunk_sec * sample_rate),
+                int(overlap_sec * sample_rate), _DTYPES[compute_dtype], max_chunk_batch,
+                mesh)
+        return AlignmentOutput(words=group_into_words(
+            path, seq.tokens, seq.chars, seq.normalized_words, evidence,
+            blank_id, word_sep_id, stride_ms, hp,
+        ))
     device = torch.device(device)
     log_probs = longform_log_probs(
         normalize_audio(audio), device_params(params, compute_dtype, device),
@@ -254,3 +321,25 @@ def align_longform(
         blank_id, word_sep_id, stride_ms, hp,
     )
     return AlignmentOutput(words=words)
+
+
+def _sharded_path_evidence(normalized, seq, params, model_cfg, chunk_samples,
+                           overlap_samples, compute_dtype, max_chunk_batch, mesh):
+    """`align_longform`'s path and evidence under a mesh: sharded chunk
+    forwards, the host stitch, the DP on this rank's device, the evidence
+    on the host."""
+    spans, chunk_lps = sharded_chunk_log_probs(
+        normalized, place_params(params, mesh), model_cfg, chunk_samples, overlap_samples,
+        compute_dtype, max_chunk_batch, mesh,
+    )
+    log_probs = stitch_log_probs(chunk_lps, spans, model_cfg.frame_stride_samples(),
+                                 model_cfg.conv_output_length(len(normalized)))
+    t_len, s_len = log_probs.shape[0], len(seq.tokens)
+    device = mesh_device(mesh)
+    tokens = np.zeros(-(-s_len // TOKEN_MULTIPLE) * TOKEN_MULTIPLE, np.int32)
+    tokens[:s_len] = seq.tokens
+    path = viterbi_single(torch.from_numpy(log_probs).to(device),
+                          torch.from_numpy(tokens).to(device), t_len, s_len)
+    path = path.cpu().numpy()[:t_len]
+    return path, frame_evidence_from_log_probs(log_probs, seq.tokens, path,
+                                               model_cfg.pad_token_id)

@@ -14,11 +14,19 @@ which keeps about three decimal digits. An f32 forward therefore turns
 TF32 off for both matmuls and convolutions while it runs, and restores the
 flags after. A bf16 forward casts activations to bf16 and leaves the flags
 alone.
+
+Under a device mesh (`parallel.mesh`) the audio and the weights are
+DTensors and the forward runs on them as written; plain tensors made inside
+it count as replicated. The mel frontend and the conv feature extractor
+run on each rank's rows (`mesh.batch_local`): DTensor has no rule for the
+frame view (`unfold`), nor, in the card's torch, for the norms' `var_mean`.
+`with_flash_spmd` carries the mesh to K5's launch beside the config.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 
 import torch
 
@@ -33,6 +41,7 @@ from .encoder import (
     sew_encoder_forward,
 )
 from .feature_extractor import feature_extractor_forward, feature_projection_forward
+from ..parallel.mesh import batch_local, is_dtensor
 from .layers import full_f32_precision, linear
 
 _ENCODERS = {"wav2vec2": encoder_forward, "sew": sew_encoder_forward,
@@ -55,14 +64,16 @@ def wav2vec2_forward(
         full_f32_precision() if compute_dtype == torch.float32
         else contextlib.nullcontext()
     )
-    with precision:
+    with precision, _replicating(audio):
         x = audio.to(compute_dtype)
         if cfg.frontend_style == "mel":
-            feats, _ = mel.mel_frontend(x, cfg, audio_lens=audio_lens)
+            feats = batch_local(lambda a, lens: mel.mel_frontend(a, cfg, audio_lens=lens)[0],
+                                x, audio_lens)
             feats = feats.to(compute_dtype)
         else:
-            feats = feature_extractor_forward(
-                params["feature_extractor"], x, cfg, audio_lens=audio_lens
+            feats = batch_local(
+                lambda p, a, lens: feature_extractor_forward(p, a, cfg, audio_lens=lens),
+                params["feature_extractor"], x, audio_lens,
             ).transpose(1, 2)
         hidden = feature_projection_forward(params["feature_projection"], feats, cfg)
         frame_mask = conv_lens = None
@@ -88,6 +99,24 @@ def wav2vec2_forward(
             hidden = adapter_forward(params["adapter"], hidden, cfg, frame_lens=conv_lens)
         logits = linear(hidden, params["lm_head"]["kernel"], params["lm_head"]["bias"])
         return logits.float()
+
+
+def _replicating(audio):
+    """Inside a forward on DTensors, plain tensors count as replicated."""
+    if not is_dtensor(audio):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def with_flash_spmd(cfg: Wav2Vec2ModelConfig, mesh) -> Wav2Vec2ModelConfig:
+    """A copy of `cfg` whose `flash_spmd` attribute (not a field: it is never
+    serialised) names the mesh K5 launches under, as the JAX package's
+    `_FrozenCfg.flash_spmd` does; `mesh` None clears it."""
+    out = copy.copy(cfg)
+    out.flash_spmd = mesh
+    return out
 
 
 def conv_frame_lengths(

@@ -56,6 +56,7 @@ import torch.nn.functional as F
 
 from ..config import POSITION_STYLES, Wav2Vec2ModelConfig
 from ..ops import flash_attention as fa
+from ..parallel.mesh import head_local, whole_local
 from .layers import act_fn, gelu, layer_norm, linear
 from .quantize import linear_maybe_quantized
 
@@ -165,12 +166,13 @@ def wavlm_position_bias(
     embedding [num_buckets, H]; computed once per forward, each layer
     gates it."""
     buckets = wavlm_buckets(t, num_buckets, max_distance, rel_attn_embed.device)
-    return rel_attn_embed[buckets].permute(2, 0, 1)
+    return whole_local(lambda e: e[buckets].permute(2, 0, 1), rel_attn_embed)
 
 
 def _self_attention(
     p: dict, x: torch.Tensor, mask_bias: torch.Tensor | None, num_heads: int,
     position_bias: torch.Tensor | None = None, use_flash: bool = False,
+    flash_spmd=None,
 ) -> torch.Tensor:
     """Multi-head self-attention; q pre-scaled by head_dim**-0.5, additive
     key mask of 0 / -inf.
@@ -189,7 +191,8 @@ def _self_attention(
 
     `use_flash` (the config's switch) with a shape `fa.use_flash` takes —
     plain attention, so only under WAV2VEC2_FLASH_FORCE=1 — and no WavLM
-    bias runs the fused kernel K5 on the pre-scaled q with scale 1."""
+    bias runs the fused kernel K5 on the pre-scaled q with scale 1, on each
+    rank's shard under `flash_spmd` (the config's mesh)."""
     b, t, h = x.shape
     head_dim = h // num_heads
 
@@ -211,15 +214,23 @@ def _self_attention(
     v = split_heads(linear_maybe_quantized(x, p["v_proj"]))
     if use_flash and position_bias is None and fa.use_flash(head_dim, dtype=x.dtype):
         mb = None if mask_bias is None else mask_bias.reshape(b, t)
-        out = fa.flash_attention(q, k, v, mb, scale=1.0)
+        out = fa.flash_attention(q, k, v, mb, scale=1.0, spmd_mesh=flash_spmd)
+    elif mask_bias is not None and mask_bias.shape[1] != 1:  # WavLM's [B, H, T, T]
+        out = head_local(_dot_attention, (q, k, v, mask_bias), (), {}, {})
     else:
-        scores = torch.matmul(q, k.transpose(-1, -2))
-        if mask_bias is not None:
-            scores = scores + mask_bias.to(scores.dtype)
-        attn = torch.softmax(scores, dim=-1)
-        out = torch.matmul(attn, v)
+        out = head_local(_dot_attention, (q, k, v), (mask_bias,), {}, {})
     out = out.transpose(1, 2).reshape(b, t, h)
     return linear_maybe_quantized(out, p["out_proj"])
+
+
+def _dot_attention(q, k, v, bias, _weights=None):
+    """softmax(q·kᵀ + bias)·v over [B, NH, T, hd] (q pre-scaled); under a
+    mesh on each rank's (rows, heads) tile (`parallel.mesh.head_local`)."""
+    scores = torch.matmul(q, k.transpose(-1, -2))
+    if bias is not None:
+        scores = scores + bias.to(scores.dtype)
+    attn = torch.softmax(scores, dim=-1)
+    return torch.matmul(attn, v)
 
 
 def _feed_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -246,7 +257,8 @@ def _encoder_layer(
 
     def attn(y):
         return _self_attention(lp["attention"], y, mask_bias, cfg.num_attention_heads,
-                               position_bias, cfg.use_flash_attention)
+                               position_bias, cfg.use_flash_attention,
+                               getattr(cfg, "flash_spmd", None))
 
     def ln(name, y):
         return layer_norm(y, lp[name]["weight"], lp[name]["bias"], eps)
@@ -450,25 +462,33 @@ def sew_d_layers_forward(
         qh = split_heads(linear(h, a["query_proj"]["kernel"], a["query_proj"]["bias"]))
         kh = split_heads(linear(h, a["key_proj"]["kernel"], a["key_proj"]["bias"]))
         vh = split_heads(linear(h, a["value_proj"]["kernel"], a["value_proj"]["bias"]))
-        scores = torch.matmul(qh, (kh / root).transpose(-1, -2))
+        pos = {}
         if "c2p" in pos_att:
-            pos_k = split_heads(linear(rel_emb, a["key_proj"]["kernel"],
-                                       a["key_proj"]["bias"]))  # [nh, 2·span, hd]
-            c2p = torch.matmul(qh, pos_k[:, c2p_sel].transpose(-1, -2))
-            scores = scores + _rel_shift(c2p) / root
-            del c2p
+            pos["k"] = split_heads(linear(rel_emb, a["key_proj"]["kernel"],
+                                          a["key_proj"]["bias"]))  # [nh, 2·span, hd]
         if "p2c" in pos_att:
-            pos_q = split_heads(linear(rel_emb, a["query_proj"]["kernel"],
-                                       a["query_proj"]["bias"]))
-            p2c = torch.matmul(kh, pos_q[:, p2c_sel].transpose(-1, -2))
-            # [B, nh, T(k), T(q)] → onto the (q, k) grid
-            scores = scores + _rel_shift(p2c).transpose(-1, -2) / root
-            del p2c
-        if mask_bias is not None:
-            scores = scores + mask_bias.to(scores.dtype)
-        attn = torch.softmax(scores, dim=-1)
-        del scores
-        out = torch.matmul(attn.to(h.dtype), vh).transpose(1, 2).reshape(h.shape)
+            pos["q"] = split_heads(linear(rel_emb, a["query_proj"]["kernel"],
+                                          a["query_proj"]["bias"]))
+
+        def core(qh, kh, vh, mask_bias, pos):
+            scores = torch.matmul(qh, (kh / root).transpose(-1, -2))
+            if "k" in pos:
+                c2p = torch.matmul(qh, pos["k"][:, c2p_sel].transpose(-1, -2))
+                scores = scores + _rel_shift(c2p) / root
+                del c2p
+            if "q" in pos:
+                p2c = torch.matmul(kh, pos["q"][:, p2c_sel].transpose(-1, -2))
+                # [B, nh, T(k), T(q)] → onto the (q, k) grid
+                scores = scores + _rel_shift(p2c).transpose(-1, -2) / root
+                del p2c
+            if mask_bias is not None:
+                scores = scores + mask_bias.to(scores.dtype)
+            attn = torch.softmax(scores, dim=-1)
+            del scores
+            return torch.matmul(attn.to(vh.dtype), vh)
+
+        out = head_local(core, (qh, kh, vh), (mask_bias,), pos, {"k": 0, "q": 0})
+        out = out.transpose(1, 2).reshape(h.shape)
         out = linear(out, a["output_dense"]["kernel"], a["output_dense"]["bias"])
         x = layer_norm(out + h, a["output_norm"]["weight"], a["output_norm"]["bias"], eps)
         up = gelu(linear(x, lp["intermediate_dense"]["kernel"],
@@ -580,6 +600,12 @@ def _relative_key_term(p: dict, q: torch.Tensor, cfg: Wav2Vec2ModelConfig) -> to
     return torch.einsum("bhld,lrd->bhlr", q, posemb)
 
 
+# the attention weights `_attention_core` reads, each with its heads axis
+# (None: it has none)
+_CORE_HEAD_AXES = {"pos_bias_u": 0, "pos_bias_v": 0, "linear_pos": 1,
+                   "distance_embedding": None}
+
+
 def _attention_core(
     p: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask_bias: torch.Tensor | None, style: str, h: int,
@@ -651,16 +677,20 @@ def _conformer_attention(
     if (cfg.use_flash_attention and style != "relative_key"
             and fa.use_flash(hd, rel=rel, dtype=x.dtype)):
         mb = None if mask_bias is None else mask_bias.reshape(b, t)
+        spmd = getattr(cfg, "flash_spmd", None)
         if rel:
             bias_u = p["pos_bias_u"].to(x.dtype)[None, :, None, :]
             bias_v = p["pos_bias_v"].to(x.dtype)[None, :, None, :]
             rel_r = fa.rel_table_rev(p["linear_pos"]["kernel"], nh, fa.pad_len(t), x.dtype)
             out = fa.flash_attention(q + bias_u, k, v, mb, q_pos=q + bias_v, rel_r=rel_r,
-                                     scale=hd ** -0.5)
+                                     scale=hd ** -0.5, spmd_mesh=spmd)
         else:
-            out = fa.flash_attention(q, k, v, mb, scale=hd ** -0.5)
+            out = fa.flash_attention(q, k, v, mb, scale=hd ** -0.5, spmd_mesh=spmd)
     else:
-        out = _attention_core(p, q, k, v, mask_bias, style, h, cfg)
+        out = head_local(
+            lambda q_, k_, v_, mb, w: _attention_core(w, q_, k_, v_, mb, style, h, cfg),
+            (q, k, v), (mask_bias,),
+            {name: p[name] for name in _CORE_HEAD_AXES if name in p}, _CORE_HEAD_AXES)
     out = out.transpose(1, 2).reshape(b, t, h)
     return linear_maybe_quantized(out, p["linear_out"])
 

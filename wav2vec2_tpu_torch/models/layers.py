@@ -227,10 +227,23 @@ def linear(
     """Dense layer with the kernel stored [in, out] (the JAX layout). The
     product is taken in the input dtype (f32 accumulation inside the GEMM),
     then the bias is added in that dtype, as `jnp.dot(...) + bias` does."""
-    out = torch.matmul(x, kernel.to(x.dtype))
+    out = settle(torch.matmul(x, kernel.to(x.dtype)))
     if bias is not None:
         out = out + bias.to(x.dtype)
     return out
+
+
+def settle(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor that holds partial sums (a product whose contracted axis
+    is sharded over 'model') made whole by one all-reduce; any other
+    tensor as it is."""
+    placements = getattr(x, "placements", None)
+    if placements is None or not any(p.is_partial() for p in placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(placements=[Replicate() if p.is_partial() else p
+                                      for p in placements])
 
 
 def fold_weight_norm(weight_g: np.ndarray, weight_v: np.ndarray) -> np.ndarray:

@@ -32,7 +32,8 @@ from __future__ import annotations
 import torch
 
 from ..errors import InvalidInputError
-from .layers import linear
+from ..parallel.mesh import contract_local, is_dtensor
+from .layers import linear, settle
 
 # projections quantized inside each encoder layer
 _LAYER_PROJ_KEYS = (
@@ -119,9 +120,12 @@ def _on_card(t: torch.Tensor) -> bool:
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [M, K] int8 · b [K, N] int8 → [M, N] int32, exact, through
     `torch._int_mm`; on the card the operands are zero-padded to more than
-    16 rows and to widths that are multiples of 8 where they fall short."""
+    16 rows and to widths that are multiples of 8 where they fall short.
+    On DTensors it runs on each rank's pieces (`parallel.mesh.contract_local`)."""
     if not hasattr(torch, "_int_mm"):
         raise RuntimeError("this PyTorch has no torch._int_mm: int8 serving needs it")
+    if is_dtensor(a) or is_dtensor(b):
+        return contract_local(int8_matmul, a, b)
     m, k = a.shape
     n = b.shape[1]
     if not _on_card(a):
@@ -153,7 +157,7 @@ def linear_int8(x: torch.Tensor, kernel_q: torch.Tensor, scale: torch.Tensor,
     x: [..., in]; kernel_q: [in, out] int8; scale: [out] f32."""
     out_dtype = x.dtype
     xq, xscale = quantize_rows(x)
-    y32 = int8_matmul(xq.reshape(-1, xq.shape[-1]), kernel_q)
+    y32 = settle(int8_matmul(xq.reshape(-1, xq.shape[-1]), kernel_q))
     y = y32.reshape(*x.shape[:-1], kernel_q.shape[-1]).float() * xscale * scale
     if bias is not None:
         y = y + bias.float()

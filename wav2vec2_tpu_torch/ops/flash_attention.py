@@ -26,6 +26,15 @@ VMEM byte budget becomes the kernel's own shared-memory check (`fits`;
 `check_fits` raises before a launch), which does not depend on T: the
 kernel streams key tiles.
 
+Under a device mesh (`spmd_mesh`, or inputs that are DTensors) the launch
+runs inside `local_map`, the counterpart of the JAX launch inside
+`jax.shard_map`: q, k, v and q_pos at (Shard(0), Shard(1)) (batch over
+'data', heads over 'model'), rel_r at Shard(0) over 'model' (heads come
+first), the mask rows over 'data'; the output at (Shard(0), Shard(1)). Each
+rank's kernel sees only its [B/dp, NH/tp, T_pad, hd] tile and no
+collective runs. A batch or head count the mesh does not divide raises the
+JAX package's ValueError.
+
 The kernel is built with the port's other kernels by `ops.cuda_build`.
 """
 
@@ -241,6 +250,39 @@ def pad_inputs(q, k, v, mask_bias, q_pos, rel_r):
     return q, k, v, mask, q_pos
 
 
+def _flash_attention_spmd(mesh, q, k, v, mask_bias, q_pos, rel_r, scale):
+    """`flash_attention` on each rank's (batch, heads) tile under `mesh`."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..parallel.mesh import batch_sharding
+
+    b, nh = q.shape[:2]
+    dp, tp = mesh.size(0), mesh.size(1)
+    if mesh.size() > 1 and (b % dp or nh % tp):
+        raise ValueError(
+            f"flash_attention under mesh: batch {b} must divide over "
+            f"'data'={dp} and heads {nh} over 'model'={tp} — disable "
+            "use_flash_attention for this (mesh, model) combination"
+        )
+    rows = batch_sharding(mesh)
+    tile = (rows[0], Shard(1))
+    specs = {"q": tile, "k": tile, "v": tile, "mask": rows,
+             "q_pos": tile, "rel_r": (Replicate(), Shard(0))}
+    args = {"q": q, "k": k, "v": v, "mask": mask_bias, "q_pos": q_pos, "rel_r": rel_r}
+    args = {name: x for name, x in args.items() if x is not None}
+
+    def local(*xs):
+        named = dict(zip(args, xs))
+        return flash_attention(named["q"], named["k"], named["v"], named.get("mask"),
+                               q_pos=named.get("q_pos"), rel_r=named.get("rel_r"),
+                               scale=scale)
+
+    return local_map(local, out_placements=(tile,), device_mesh=mesh,
+                     in_placements=tuple(specs[name] for name in args),
+                     redistribute_inputs=True)(*args.values())
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -250,13 +292,17 @@ def flash_attention(
     q_pos: torch.Tensor | None = None,
     rel_r: torch.Tensor | None = None,
     scale: float = 1.0,
+    spmd_mesh=None,
 ) -> torch.Tensor:
     """Fused attention. q, k, v: [B, NH, T, hd]; `scale` multiplies the
     summed scores before the mask (the conformer's (ac + bd)/sqrt(hd) op
     order). mask_bias: [B, T] additive f32 key mask (0 / −inf). For the
     Transformer-XL term pass q_pos (q + pos_bias_v, shaped as q) and rel_r
     from `rel_table_rev` at T_pad = pad_len(T). Returns [B, NH, T, hd] in
-    q.dtype."""
+    q.dtype. `spmd_mesh` (or DTensor inputs) launches per shard."""
+    mesh = spmd_mesh if spmd_mesh is not None else getattr(q, "device_mesh", None)
+    if mesh is not None:
+        return _flash_attention_spmd(mesh, q, k, v, mask_bias, q_pos, rel_r, scale)
     if torch.is_grad_enabled() and any(
             x is not None and x.requires_grad for x in (q, k, v, mask_bias, q_pos, rel_r)):
         # the kernel writes its output through a raw pointer, so a gradient

@@ -22,7 +22,9 @@
 tier (`ops.viterbi_ref`); for CUDA tensors they launch the kernel or raise —
 no fallback to another tier, another K1 mode or a plain version.
 `launches` counts the launches per kernel, and `k1_launches` K1's
-launches per mode.
+launches per mode. The kernels write through raw pointers, so every
+wrapper refuses a DTensor: under a device mesh they run on each rank's
+rows inside `local_map` (`parallel.mesh.batch_local`).
 
 Both sources are built with the port's other kernels into one library by
 `ops.cuda_build` (one `nvcc` call at first use) and loaded with `ctypes`.
@@ -35,6 +37,7 @@ import functools
 
 import torch
 
+from ..parallel.mesh import is_dtensor
 from . import viterbi_ref
 from .cuda_build import MAX_SMEM_BYTES, library
 
@@ -218,6 +221,15 @@ def check_fits(tier: str, t_pad: int, s_pad: int, v: int) -> None:
         )
 
 
+def refuse_dtensor(*tensors) -> None:
+    """Raise TypeError on a DTensor: the kernels would read and write its
+    local shard through raw pointers as if it were the whole tensor."""
+    if any(is_dtensor(x) for x in tensors):
+        raise TypeError("the Viterbi kernels take plain tensors, not DTensors: under a "
+                        "device mesh call them on each rank's rows "
+                        "(parallel.mesh.batch_local)")
+
+
 def _check_inputs(log_probs, tokens, t_lens, s_lens) -> None:
     dev = log_probs.device
     named = {"log_probs": log_probs, "tokens": tokens, "t_lens": t_lens,
@@ -291,6 +303,7 @@ def viterbi_emissions_batch(
     `viterbi_ref.viterbi_emissions_batch`."""
     if tier not in ("k2", "k3"):
         raise ValueError(f"{tier!r} does not read pre-gathered emissions")
+    refuse_dtensor(emit, tokens, t_lens, s_lens)
     if emit.device.type == "cpu":
         return viterbi_ref.viterbi_emissions_batch(emit, tokens, t_lens, s_lens)
     if emit.device.type != "cuda":
@@ -317,6 +330,7 @@ def viterbi_batch(
     synchronisation."""
     if tier is not None and tier not in TIERS:
         raise ValueError(f"unknown Viterbi tier {tier!r}; want one of {TIERS}")
+    refuse_dtensor(log_probs, tokens, t_lens, s_lens)
     if log_probs.device.type == "cuda":
         _check_inputs(log_probs, tokens, t_lens, s_lens)
         tier = tier or select_tier(log_probs.shape[1], tokens.shape[1], log_probs.shape[2])
@@ -346,6 +360,7 @@ def k1_batch(
     shape or R does not fit in 512 threads."""
     if mode not in K1_MODES:
         raise ValueError(f"unknown K1 mode {mode!r}; want one of {K1_MODES}")
+    refuse_dtensor(log_probs, tokens, t_lens, s_lens)
     if strip and (mode != "resident" or strip not in K1_STRIPS):
         raise ValueError(f"strip {strip}: want one of {K1_STRIPS}, in the resident mode")
     if log_probs.device.type != "cuda":

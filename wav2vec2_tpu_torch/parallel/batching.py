@@ -20,7 +20,11 @@ fused kernel K5 (`ops.flash_attention`); by default it is on on a CUDA
 device, and off under `quantize_int8`, the int8 serving mode
 (`models.quantize`), as in the JAX engine.
 
-Not ported yet: the device mesh.
+`mesh` (`parallel.mesh`, SPMD: every rank makes the same calls) shards
+each batch's rows over the mesh's 'data' axis: the forward runs on
+DTensors, K5 on each rank's (rows, heads) tile, and the Viterbi tier and
+the evidence on each rank's rows; the T-length outputs are gathered, so
+every rank gets every row, in order.
 """
 
 from __future__ import annotations
@@ -42,7 +46,12 @@ from ..align.tokenization import (
 )
 from ..config import AlignerHyperParams, Wav2Vec2ModelConfig
 from ..errors import InvalidInputError
-from ..models.ctc_model import frame_lengths, log_softmax_logits, wav2vec2_forward
+from ..models.ctc_model import (
+    frame_lengths,
+    log_softmax_logits,
+    wav2vec2_forward,
+    with_flash_spmd,
+)
 from ..models.params import cast_compute_weights_bf16, params_to_device
 from ..models.quantize import quantize_encoder_int8
 from ..ops import viterbi_cuda
@@ -50,6 +59,16 @@ from ..ops.evidence import evidence_batch
 from ..pipeline.runtime import _utterance_frame_stats, normalize_audio
 from ..types import AlignmentOutput
 from ..utils.device import select_device
+from .mesh import (
+    axis_size,
+    batch_local,
+    distribute_rows,
+    dtensor_no_grad,
+    full,
+    mesh_device,
+    mesh_size,
+    place_params,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -72,6 +91,18 @@ def _pad_len(x: int, m: int, scheme: str) -> int:
     if scheme == "linear":
         return _round_up(x, m)
     raise ValueError(f"unknown bucket scheme: {scheme!r}")
+
+
+def _repeat_last_rows(pad: int, *arrays):
+    """Each array (numpy or tensor) with its last row repeated `pad` more
+    times."""
+    out = []
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            out.append(torch.cat([a, a[-1:].expand(pad, *a.shape[1:])]))
+        else:
+            out.append(np.concatenate([a, np.repeat(a[-1:], pad, axis=0)]))
+    return out
 
 
 def _pad_batch_rows(b_target: int, *arrays):
@@ -172,7 +203,14 @@ class BatchAligner:
     `use_flash_attention` sets the config's switch of that name: None
     (auto) turns it on on a CUDA device unless `quantize_int8`; True or
     False overrides a config that arrived with the switch set either
-    way."""
+    way.
+
+    `mesh` (a ('data', 'model') `DeviceMesh`, `parallel.mesh.make_mesh`)
+    shards each batch's rows over 'data'. Every rank constructs the aligner
+    and submits the same batches. The params keep their placement and dtype
+    (no bf16 cast): DTensor leaves as the caller placed them
+    (`parallel.mesh.shard_params` for tensor parallelism), any other leaf
+    replicated; the device is the mesh's."""
 
     def __init__(
         self,
@@ -187,25 +225,37 @@ class BatchAligner:
         use_flash_attention: bool | None = None,
         units: str = "word",
         quantize_int8: bool = False,
+        mesh=None,
     ):
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unsupported compute dtype {compute_dtype!r}")
         self.device = select_device(device)
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh for device {device!r}")
+            self.device = mesh_device(mesh)
         if use_flash_attention is None:
             # auto, as the JAX engine enables it on its accelerator; int8
             # serving keeps the plain attention, there as here
             use_flash_attention = self.device.type == "cuda" and not quantize_int8
         if model_cfg.use_flash_attention != bool(use_flash_attention):
             model_cfg = replace(model_cfg, use_flash_attention=bool(use_flash_attention))
+        if use_flash_attention and mesh_size(mesh) > 1:
+            # K5 launches per (rows, heads) tile of the mesh
+            model_cfg = with_flash_spmd(model_cfg, mesh)
         self.cfg = model_cfg
+        self.mesh = mesh
         self.compute_dtype = (
             torch.float32 if compute_dtype == "float32" else torch.bfloat16
         )
-        params = params_to_device(params, self.device)
+        if mesh is None:
+            params = params_to_device(params, self.device)
         if quantize_int8:
             # from the weights as given (f32 unless the caller cast them)
             params = quantize_encoder_int8(params)
-        if self.compute_dtype == torch.bfloat16:
+        if mesh is not None:
+            params = place_params(params, mesh)
+        elif self.compute_dtype == torch.bfloat16:
             params = cast_compute_weights_bf16(params)
         self.params = params
         self.vocab = vocab
@@ -253,6 +303,10 @@ class BatchAligner:
         blank_prob, entropy[, log_probs]) without synchronising; on a CUDA
         device their host copies are already enqueued."""
         dev = self.device
+        if self.mesh is not None:
+            with dtensor_no_grad():
+                return self._submit_sharded(audio, audio_lens, tokens, s_lens,
+                                            return_log_probs)
         audio = _as_device(audio, None, dev)
         audio_lens = _as_device(audio_lens, torch.int32, dev)
         tokens = _as_device(tokens, torch.int32, dev).contiguous()
@@ -268,6 +322,48 @@ class BatchAligner:
         paths = viterbi_cuda.viterbi_batch(log_probs, tokens, t_lens, s_lens)
         out = (paths, t_lens, *evidence_batch(log_probs, tokens, paths, self.blank_id))
         handles = BatchHandles(out + (log_probs,) if return_log_probs else out)
+        if self._copy_stream is not None:
+            handles.host, handles.copied = self._copy_to_host(out)
+        return handles
+
+    def _submit_sharded(self, audio, audio_lens, tokens, s_lens, return_log_probs):
+        """`submit_padded_batch` under the mesh: the rows, padded to a
+        multiple of the 'data' size by repeating the last one (host-staged
+        or tensor input alike), go out as DTensors; the forward runs on
+        them, the DP and the evidence on each rank's rows; the T-length
+        outputs (and the log-probs, if asked) are gathered whole and cut
+        back to the rows given."""
+        b = audio.shape[0]
+        pad = (-b) % axis_size(self.mesh, "data")
+        if pad:
+            audio, audio_lens, tokens, s_lens = _repeat_last_rows(
+                pad, audio, audio_lens, tokens, s_lens)
+        dev = self.device
+        audio_lens = _as_device(audio_lens, torch.int32, dev)
+        audio, lens, tokens, s_lens = distribute_rows(
+            self.mesh, _as_device(audio, None, dev), audio_lens,
+            _as_device(tokens, torch.int32, dev), _as_device(s_lens, torch.int32, dev))
+        if self.normalize_on_device:
+            audio = batch_local(_normalize_batch, audio, lens)
+        logits = wav2vec2_forward(
+            self.params, audio, self.cfg, audio_lens=lens, compute_dtype=self.compute_dtype,
+        )
+        log_probs = log_softmax_logits(logits)
+        t_lens = frame_lengths(self.cfg, audio_lens).to(torch.int32)
+        blank_id = self.blank_id
+
+        def dp_and_evidence(lp, tok, t_l, s_l):
+            lp = lp.contiguous()
+            paths = viterbi_cuda.viterbi_batch(lp, tok, t_l, s_l)
+            # paths are exact in f32 (S < 2**24): one gather for all five
+            return torch.stack([paths.float(), *evidence_batch(lp, tok, paths, blank_id)],
+                               dim=1)
+
+        packed = full(batch_local(dp_and_evidence, log_probs, tokens,
+                                  *distribute_rows(self.mesh, t_lens), s_lens))[:b]
+        out = (packed[:, 0].to(torch.int32), t_lens[:b],
+               *(packed[:, i].contiguous() for i in range(1, 5)))
+        handles = BatchHandles(out + (full(log_probs)[:b],) if return_log_probs else out)
         if self._copy_stream is not None:
             handles.host, handles.copied = self._copy_to_host(out)
         return handles

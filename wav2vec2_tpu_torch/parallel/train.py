@@ -31,8 +31,15 @@ place where optax returns a new tree.
   at HIGHEST precision; at bf16 the flags are left alone.
 - **No rematerialization.** The JAX package has no `jax.checkpoint` in its
   models, so the port adds no `torch.utils.checkpoint`.
-- **One device.** `mesh` must be None: the data × model mesh
-  (`parallel/mesh.py`) is not ported yet (ROADMAP.md §1 item 3).
+- **Mesh.** As in the JAX package, placements are carried by the inputs:
+  the params come from `parallel.mesh.shard_params` (tensor parallelism
+  over 'model'), the batch is at `batch_sharding` (numpy or plain-tensor
+  batches are distributed so by the step), and every rank calls the step
+  with the same arguments (SPMD). The forward and backward run on
+  DTensors; the CTC loss runs on each rank's rows (`mesh.batch_local`) and
+  is the mean over the global batch. The gradients of replicated leaves
+  are all-reduced over 'data', tensor-parallel leaves keep their shard's
+  gradient, and AdamW updates every leaf in its placement.
 """
 
 from __future__ import annotations
@@ -49,7 +56,8 @@ import torch.nn.functional as F
 
 from ..config import Wav2Vec2ModelConfig
 from ..models.ctc_model import frame_lengths, wav2vec2_forward
-from ..models.layers import full_f32_precision
+from ..models.layers import full_f32_precision, settle
+from .mesh import batch_local, batch_sharding, distribute, is_dtensor
 
 LOG_EPSILON = -1e5  # optax.ctc_loss's log(+0)
 
@@ -90,8 +98,9 @@ def _trainable(tree):
 
 
 def init_train_state(params, tx: Callable[..., torch.optim.Optimizer]) -> TrainState:
-    """A copy of `params` as f32 leaves that require grad, with the
-    optimizer `tx` (from `make_optimizer`) bound to them."""
+    """A copy of `params` as f32 leaves that require grad (DTensor leaves
+    stay DTensors in their placement), with the optimizer `tx` (from
+    `make_optimizer`) bound to them."""
     params = _trainable(params)
     return TrainState(params=params, opt_state=tx(tree_leaves(params)), step=0)
 
@@ -177,7 +186,25 @@ def ctc_loss_from_logits(
 ) -> torch.Tensor:
     """Mean CTC loss over the batch, as optax.ctc_loss gives it per row.
     logits [B, T, V] (any float dtype, taken in f32), labels [B, L] vocab
-    ids (NOT blank-interleaved)."""
+    ids (NOT blank-interleaved). On DTensors the rows are taken on each
+    rank and the mean is over the global batch."""
+    per_seq = batch_local(functools.partial(ctc_loss_per_row, blank_id=blank_id),
+                          logits, t_lens, labels, label_lens)
+    if is_dtensor(per_seq):
+        return settle(per_seq.sum()) / per_seq.shape[0]
+    # the batch mean, as the JAX step takes it (not torch's "mean", which
+    # divides each row by its label length first)
+    return per_seq.mean()
+
+
+def ctc_loss_per_row(
+    logits: torch.Tensor,
+    t_lens: torch.Tensor,
+    labels: torch.Tensor,
+    label_lens: torch.Tensor,
+    blank_id: int,
+) -> torch.Tensor:
+    """The CTC loss [B] of each row, as optax.ctc_loss gives it."""
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     device = log_probs.device
     t_lens, labels, label_lens = (torch.as_tensor(a, device=device).long()
@@ -189,9 +216,7 @@ def ctc_loss_from_logits(
             idx = torch.from_numpy(np.flatnonzero(rows)).to(device)
             per_seq = per_seq.index_put((idx,), loss_fn(
                 log_probs[idx], t_lens[idx], labels[idx], label_lens[idx], blank_id))
-    # the batch mean, as the JAX step takes it (not torch's "mean", which
-    # divides each row by its label length first)
-    return per_seq.mean()
+    return per_seq
 
 
 def make_train_step(
@@ -203,21 +228,25 @@ def make_train_step(
     """Returns step(state, audio, audio_lens, labels, label_lens) → (state,
     loss): one AdamW step on the batch, on the device the state's leaves
     live on. The inputs may be numpy arrays or tensors; `loss` is a 0-d f32
-    tensor on that device. `tx` is accepted for call-site symmetry with the
-    JAX package: the optimizer is the one `init_train_state` bound."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=...) is not ported yet: the data × model mesh "
-            "(parallel/mesh.py) is ROADMAP.md §1 item 3; pass mesh=None")
+    tensor on that device (a replicated DTensor under `mesh`). `tx` is
+    accepted for call-site symmetry with the JAX package: the optimizer is
+    the one `init_train_state` bound. Under `mesh` the state's leaves are
+    DTensors (`shard_params`, then `init_train_state`), and a batch that is
+    not at `batch_sharding` yet is distributed so."""
     cfg = dataclasses.replace(model_cfg, use_flash_attention=False)
     blank_id = model_cfg.pad_token_id
 
     def step(state: TrainState, audio, audio_lens, labels, label_lens):
         device = tree_leaves(state.params)[0].device
         audio, audio_lens, labels, label_lens = (
+            a if is_dtensor(a) else
             torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a,
                             device=device)
             for a in (audio, audio_lens, labels, label_lens))
+        if mesh is not None:
+            audio, audio_lens, labels, label_lens = (
+                a if is_dtensor(a) else distribute(a, mesh, batch_sharding(mesh))
+                for a in (audio, audio_lens, labels, label_lens))
         state.opt_state.zero_grad(set_to_none=True)
         # the f32 backward's GEMMs and convolutions run without TF32 too:
         # the forward's own block ends before backward() runs
@@ -229,7 +258,18 @@ def make_train_step(
             t_lens = frame_lengths(cfg, audio_lens)
             loss = ctc_loss_from_logits(logits, t_lens, labels, label_lens, blank_id)
             loss.backward()
+        if mesh is not None:
+            _reduce_grads(state.params)
         state.opt_state.step()
         return TrainState(state.params, state.opt_state, state.step + 1), loss.detach()
 
     return step
+
+
+def _reduce_grads(params) -> None:
+    """Each DTensor leaf's gradient at the leaf's own placement: a partial
+    sum over 'data' (a replicated leaf's) is all-reduced, a tensor-parallel
+    leaf keeps its shard's gradient."""
+    for p in tree_leaves(params):
+        if p.grad is not None and is_dtensor(p) and p.grad.placements != p.placements:
+            p.grad = p.grad.redistribute(p.device_mesh, p.placements)
