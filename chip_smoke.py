@@ -6,10 +6,13 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 It builds the CUDA kernels from `wav2vec2_tpu_torch/csrc/` with one
 `nvcc` call (the Viterbi kernel K1 in its two modes, its blocked tiers K2,
-K3, K4, and the fused rel-pos attention kernel K5), holds each against its
-plain PyTorch version (the Viterbi kernels also against the numpy oracle,
-K4 against K1 at hour scale), and drives the port's paths through the entry points a
-user calls, with random weights from a numpy seed:
+K3, K4, and the fused rel-pos attention kernel K5), reads the bf16 K5
+kernel's SASS (`cuobjdump -sass`: each of its instantiations must hold
+wgmma (HGMMA) and TMA loads (UTMALDG), and none mma.sync (HMMA)), holds
+each kernel against its plain PyTorch version (the Viterbi kernels also
+against the numpy oracle, K4 against K1 at hour scale; K5 also timed at
+the (m2) mesh's local tiles), and drives the port's paths through the
+entry points a user calls, with random weights from a numpy seed:
 
 - wav2vec2-base at full width: `BatchAligner.submit_padded_batch` on
   32 × 10 s with the gates of `bench.py` (K1), and on a long bucket that
@@ -1450,12 +1453,12 @@ def time_batch_path(aligner, vocab, batch, repeats):
 
 def flash_cases():
     """(name, B, NH, T, hd, dtype, rel, masked) for K5 against its plain
-    version: both dtypes (bf16 through the tensor-core kernel, f32 through
-    the FMA kernel), rel on and off, masked and unmasked, at odd T (37 and
-    255 pad to 256, 257 and 499 to 512, 1 499 — the 30 s chunk — to 1 536)
-    and head dims 16, 32, 64, 128 and 80 (zero-filled to the 128-wide
-    template); bf16 at T = 1 499 with hd 64 and 128; then the slice's shape
-    with B cut to 4 (bf16) and 2 (f32)."""
+    version: both dtypes (bf16 through the wgmma kernel, f32 through the
+    FMA kernel), rel on and off, masked and unmasked, at odd T (37 and 255
+    pad to 256, 257 and 499 to 512, 1 499 — the 30 s chunk — to 1 536) and
+    head dims 16, 32, 64, 128 and 80 (two column chunks, 64 + 16, in the
+    wgmma kernel); bf16 at T = 1 499 with hd 64 and 128; then the slice's
+    shape with B cut to 4 (bf16) and 2 (f32)."""
     cases = []
     for t, hd in ((37, 32), (255, 64), (257, 128), (499, 64), (1499, 32), (100, 80),
                   (300, 16)):
@@ -1559,6 +1562,37 @@ def flash_bound(b, nh, t_pad, hd, elem_bytes, peak_ops, rel=True):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k5_sass(library: str) -> dict:
+    """Instructions of the bf16 K5 kernel in the built library's SASS
+    (`cuobjdump -sass`): {"functions": its instantiations, "HGMMA",
+    "UTMALDG", "HMMA": totals over them, "lacking": instantiations with no
+    HGMMA or no UTMALDG}. The wgmma kernel shows HGMMA (wgmma) and UTMALDG
+    (TMA loads) in each instantiation and no HMMA (mma.sync)."""
+    import re
+
+    from wav2vec2_tpu_torch.ops import cuda_build
+
+    cuobjdump = Path(cuda_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", library], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    ops = {op: re.compile(rf"\b{op}\b") for op in ("HGMMA", "UTMALDG", "HMMA")}
+    per_function, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            current = name if "flash_attention_wgmma_kernel" in name else None
+            if current:
+                per_function[current] = dict.fromkeys(ops, 0)
+        elif current:
+            for op, pattern in ops.items():
+                per_function[current][op] += bool(pattern.search(line))
+    counts = {op: sum(c[op] for c in per_function.values()) for op in ops}
+    counts["functions"] = len(per_function)
+    counts["lacking"] = [name for name, c in per_function.items()
+                         if not c["HGMMA"] or not c["UTMALDG"]]
+    return counts
+
+
 def time_flash(device, card, self_attn, b, nh, t, hd):
     """K5 at the slice's shape (for the conformer large at 32 × 10 s: B=32,
     NH=16, T=499 → T_pad=512, hd=64; bf16, rel, masked): the kernel alone
@@ -1623,7 +1657,7 @@ def time_flash(device, card, self_attn, b, nh, t, hd):
     del q32, k32, v32, p32
     bound_ms, bound_by = flash_bound(b, nh, t_pad, hd, 2, PEAK_BF16_OPS_PER_S)
     work = 6 * t_pad * t_pad * hd * b * nh
-    print(f"time: K5 bf16 (tensor cores) {work / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s of the "
+    print(f"time: K5 bf16 (wgmma kernel) {work / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s of the "
           f"6·T_pad²·hd work, {bound_ms / k_ms:.1%} of its bound ({bound_ms:.4f} ms by "
           f"{bound_by}); SDPA {lib_ms:.4f} ms, K5/SDPA {k_ms / lib_ms:.2f} {card}")
     print(f"time: K5 kernel {k_ms:.4f} ms vs plain PyTorch {p_ms:.3f} ms at B={b} NH={nh} "
@@ -2130,9 +2164,10 @@ def time_flash_shape(device, card, b, nh, t, hd, rel=False):
     with the bound of the 4·T_pad²·hd operations a (batch, head) does (q·kᵀ
     and P·V; 6·T_pad²·hd with `rel`). Plain masked attention at B=32,
     NH=16, T=499 (T_pad 512) is the shape of the forced forwards at 32 x 10
-    s (head dim 80 runs through the 128-wide template, zero-filled); B=1,
-    NH=16, T=249 (T_pad 256) with `rel` is an online window of the
-    conformer rel-pos large."""
+    s (head dim 80 as two column chunks, 64 + 16); B=1, NH=16, T=249
+    (T_pad 256) with `rel` is an online window of the conformer rel-pos
+    large; B=4 NH=16 and B=8 NH=8 at T=499 with `rel` are the (m2) mesh's
+    local tiles."""
     import torch
     import torch.nn.functional as F
 
@@ -2166,9 +2201,11 @@ def time_flash_shape(device, card, b, nh, t, hd, rel=False):
         lib_ms = kernel_ms(library, 20)
     bound_ms, bound_by = flash_bound(b, nh, t_pad, hd, 2, PEAK_BF16_OPS_PER_S, rel=rel)
     what = "rel-pos masked attention" if rel else "plain masked attention (forced)"
+    work = (6 if rel else 4) * t_pad * t_pad * hd * b * nh
     print(f"time: K5 {what} hd={hd}: kernel {k_ms:.4f} ms vs plain "
           f"PyTorch {p_ms:.3f} ms vs SDPA {lib_ms:.4f} ms (K5/SDPA {k_ms / lib_ms:.2f}) at B={b} "
-          f"NH={nh} T={t} (T_pad={t_pad}) bf16; bound {bound_ms:.4f} ms by {bound_by} "
+          f"NH={nh} T={t} (T_pad={t_pad}) bf16; {work / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s of the "
+          f"{6 if rel else 4}·T_pad²·hd work; bound {bound_ms:.4f} ms by {bound_by} "
           f"({bound_ms / k_ms:.1%} of it); relative error {rel_err:.2e} (device time, medians) "
           f"{card}")
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound_ms,
@@ -3898,6 +3935,13 @@ def main() -> int:
                        if "registers" in l or "smem" in l or "spill" in l)
     print(f"build: {', '.join(s.name for s in cuda_build.SOURCES)} -> {info['library']} in "
           f"{info['seconds']:.3f} s (nvcc {' '.join(cuda_build.NVCC_FLAGS)}); ptxas: {ptxas}")
+    sass = k5_sass(info["library"])
+    print(f"sass: the bf16 K5 kernel (flash_attention_wgmma_kernel, {sass['functions']} "
+          f"instantiations): HGMMA {sass['HGMMA']}, UTMALDG {sass['UTMALDG']}, HMMA "
+          f"{sass['HMMA']} instructions (cuobjdump -sass)")
+    if sass["functions"] != 10 or sass["lacking"] or sass["HMMA"]:
+        raise AssertionError(f"the bf16 K5 kernel's SASS: {sass}; want HGMMA and UTMALDG in "
+                             "each of its 10 instantiations and no HMMA")
     for lib in native_build.SOURCES:
         t0 = time.perf_counter()
         path = native_build.build(lib, force=True)
@@ -3930,6 +3974,8 @@ def main() -> int:
     for tier, tier_cases in blocked_cases(np.random.default_rng(8)).items():
         max_err[tier] = check_kernel(device, tier_cases, tier)
     max_err["k5"] = check_flash(device, flash_cases())
+    for b, nh in ((4, 16), (8, 8)):  # the (m2) mesh's local conformer tiles
+        time_flash_shape(device, card, b, nh, 499, 64, rel=True)
     hour_rows = hour_scale(device, card)
     tier_crossover(device, card, hour_rows)
 

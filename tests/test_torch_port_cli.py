@@ -41,6 +41,10 @@ from wav2vec2_tpu_torch.data.flac_encoder import write_flac
 from wav2vec2_tpu_torch.models.params import params_from_jax, params_to_hf_flat_dict
 from wav2vec2_tpu_torch.utils.checkpoint import save_safetensors
 
+# the JAX package's grouping engine and FLAC decoder, built privately for
+# this module (test_torch_port_native.py says why)
+from test_torch_port_native import private_jax_natives  # noqa: E402,F401
+
 REPO = Path(__file__).resolve().parent.parent
 
 CONFIG = dict(

@@ -37,6 +37,10 @@ from wav2vec2_tpu_torch.data import subtitles as port_subs
 from wav2vec2_tpu_torch.data import textgrid as port_tg
 from wav2vec2_tpu_torch.types import WordConfidenceStats, WordTiming
 
+# the JAX package's grouping engine and FLAC decoder, built privately for
+# this module (test_torch_port_native.py says why)
+from test_torch_port_native import private_jax_natives  # noqa: E402,F401
+
 
 def rand_pcm(n, seed=0, scale=2000, bits=16):
     rng = np.random.default_rng(seed)

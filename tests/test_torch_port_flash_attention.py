@@ -83,6 +83,19 @@ def test_plain_version_matches_jax_kernel_f32(t, rel, masked):
     assert _rel_err(got, want) < F32_REL
 
 
+@pytest.mark.parametrize("hd", [80, 128])
+@pytest.mark.parametrize("rel", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_version_matches_jax_kernel_wide_head_dims(hd, rel, dtype):
+    """The head dims the bf16 kernel serves in two column chunks (80 = 64 +
+    16, 128 = 64 + 64): the plain version against the JAX kernel."""
+    args = _inputs(1, 2, 100, hd, rel, True, seed=hd)
+    got = _port_out(*args, getattr(torch, dtype))
+    want = _jax_out(*args, getattr(jnp, dtype))
+    assert np.isfinite(got).all()
+    assert _rel_err(got, want) < (F32_REL if dtype == "float32" else BF16_REL)
+
+
 @pytest.mark.parametrize("t,rel,masked", [(257, True, True), (200, False, False)])
 def test_plain_version_matches_jax_kernel_bf16(t, rel, masked):
     args = _inputs(2, 2, t, 64, rel, masked, seed=1)
@@ -172,16 +185,19 @@ def test_shared_memory_within_one_block(hd, dtype, rel):
 
 
 @pytest.mark.parametrize("hd,dtype,rel,want", [
-    # bf16, tensor cores: 8 warps (128 query rows) up to width 64, 4 (64
-    # rows) at 128; bf16 rows of stride width + 8 (q[, q_pos], two stages
-    # of K, V[, rows + 64 R rows]), with rel a [16, 72] f32 bd tile a
-    # warp, and two 64-key f32 mask tiles
-    (16, torch.bfloat16, True, 896 * 24 * 2 + 8 * 4608 + 512),
-    (32, torch.bfloat16, False, 384 * 40 * 2 + 512),
-    (64, torch.bfloat16, True, 896 * 72 * 2 + 8 * 4608 + 512),
-    (64, torch.bfloat16, False, 384 * 72 * 2 + 512),
-    (80, torch.bfloat16, True, 640 * 136 * 2 + 4 * 4608 + 512),
-    (128, torch.bfloat16, True, 640 * 136 * 2 + 4 * 4608 + 512),
+    # bf16, wgmma: bf16 rows of hd * 2 bytes, nothing past hd (q[, q_pos],
+    # two stages of K, V[, an R window of 128 + BK rows]); with rel eight
+    # [16, BK + 8] f32 shear slabs; two BK-key f32 mask tiles, 5
+    # mbarriers, 1 KiB of base alignment. BK = 128; with rel 64, and 32 at
+    # hd 128
+    (16, torch.bfloat16, True, (256 + 2 * (128 + 192)) * 32 + 8 * 4608 + 512 + 40 + 1024),
+    (32, torch.bfloat16, False, (128 + 2 * 256) * 64 + 1024 + 40 + 1024),
+    (64, torch.bfloat16, True, (256 + 2 * (128 + 192)) * 128 + 8 * 4608 + 512 + 40 + 1024),
+    (64, torch.bfloat16, False, (128 + 2 * 256) * 128 + 1024 + 40 + 1024),
+    (80, torch.bfloat16, True, (256 + 2 * (128 + 192)) * 160 + 8 * 4608 + 512 + 40 + 1024),
+    (128, torch.bfloat16, True, (256 + 2 * (64 + 160)) * 256 + 8 * 2560 + 256 + 40 + 1024),
+    (80, torch.bfloat16, False, (128 + 2 * 256) * 160 + 1024 + 40 + 1024),
+    (128, torch.bfloat16, False, (128 + 2 * 256) * 256 + 1024 + 40 + 1024),
     # f32, FMAs: f32 rows of stride width + 1, the score tile, row vectors
     (64, torch.float32, True, 117760),
     (128, torch.float32, True, 215808),
@@ -191,18 +207,53 @@ def test_shared_memory_sizes_are_pinned(hd, dtype, rel, want):
     assert fa.smem_bytes(hd, dtype, rel) == want <= fa.MAX_SMEM_BYTES
 
 
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("rel", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_served_head_dims_fit(hd, rel, dtype):
+    """Every head dim the bf16 kernel serves fits one block in both kernels,
+    rel on and off."""
+    need = fa.smem_bytes(hd, dtype, rel)
+    assert 0 < need <= fa.MAX_SMEM_BYTES and fa.fits(hd, dtype, rel)
+    fa.check_fits(hd, dtype, rel)
+
+
+@pytest.mark.parametrize("rel", [True, False])
+def test_head_dim_80_is_not_the_128_template(rel):
+    """hd 80 is two column chunks, 64 + 16: its bf16 tiles hold 80 columns
+    a row, not the 128 of a zero-filled template."""
+    bk, stages = fa.wgmma_key_tile(80, rel), fa.WGMMA_STAGES
+    rows = fa.WGMMA_BQ * (2 if rel else 1) + stages * (2 * bk + (fa.WGMMA_BQ + bk if rel else 0))
+    fixed = fa.smem_bytes(80, torch.bfloat16, rel) - rows * 80 * 2
+    assert fixed == (8 * 16 * (bk + 8) * 4 if rel else 0) + stages * (bk * 4 + 16) + 8 + 1024
+    if not rel:  # one key tile for both: the 128-wide tiles are larger
+        assert fa.smem_bytes(80, torch.bfloat16, rel) < fa.smem_bytes(128, torch.bfloat16, rel)
+
+
+def test_check_tma_aligned_raises_on_a_misaligned_base():
+    buf = torch.zeros(2 * 256 * 64 + 8, dtype=torch.bfloat16)
+    aligned = buf[:2 * 256 * 64].view(2, 256, 64)
+    assert aligned.data_ptr() % 16 == 0
+    fa.check_tma_aligned(q=aligned, mask=None)
+    shifted = buf[1:1 + 2 * 256 * 64].view(2, 256, 64)  # 2 bytes past the base
+    assert shifted.is_contiguous()
+    with pytest.raises(ValueError, match="k starts at .* 16-byte alignment"):
+        fa.check_tma_aligned(q=aligned, k=shifted)
+
+
 @pytest.mark.parametrize("dtype,want", [
-    (torch.bfloat16, "mma"), (torch.float32, "fma"), (torch.float16, None),
+    (torch.bfloat16, "wgmma"), (torch.float32, "fma"), (torch.float16, None),
 ])
 def test_dtype_picks_the_kernel(dtype, want):
-    """bf16 launches the tensor-core kernel, f32 the exact FMA kernel (the
-    TPU's HIGHEST path); no other dtype has a kernel."""
+    """bf16 launches the wgmma kernel, f32 the exact FMA kernel (the TPU's
+    HIGHEST path); no other dtype has a kernel."""
     assert fa.kernel_for(dtype) == want
     assert fa.fits(64, dtype, True) == (want is not None)
 
 
 @pytest.mark.parametrize("hd,dtype", [(0, torch.float32), (129, torch.float32),
-                                      (64, torch.float16)])
+                                      (64, torch.float16), (48, torch.bfloat16),
+                                      (100, torch.bfloat16), (8, torch.bfloat16)])
 def test_check_fits_refuses_what_no_template_serves(hd, dtype):
     with pytest.raises(ValueError, match="K5"):
         fa.check_fits(hd, dtype, True)

@@ -10,8 +10,18 @@
 - `utils.native_build` compiles into its build directory, skips an
   up-to-date library, rebuilds after a newer source, and two processes
   that build at once both load a whole library.
+
+The JAX package's loaders build their libraries inside `native/` with
+`make`, without a lock, and the grouping loader gives up for good on its
+first error. Test files run in parallel processes, so one process could
+load a library another was still writing. `private_jax_natives` (a
+module fixture here and in every port test file that reaches a JAX
+loader) builds the JAX package's engine and FLAC decoder with the port's
+locked builder into a directory of the module's own and points the JAX
+loaders at it for the module.
 """
 
+import contextlib
 import dataclasses
 import os
 import subprocess
@@ -22,6 +32,8 @@ import numpy as np
 import pytest
 
 from wav2vec2_tpu.align import grouping as jax_grouping
+from wav2vec2_tpu.align.grouping import native as jax_native
+from wav2vec2_tpu.data import flac as jax_flac
 from wav2vec2_tpu_torch.align import grouping
 from wav2vec2_tpu_torch.align.grouping import (
     frame_evidence_from_log_probs,
@@ -36,6 +48,43 @@ from wav2vec2_tpu_torch.utils import native_build
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "tests" / "golden"))
 from generate_golden import BLANK_ID, CASE_EXTRAS, CASES, SEP_ID, STRIDE_MS, VOCAB, synth_log_probs  # noqa: E402
+
+
+# the JAX loaders: (module, the library it loads, the attributes saved and restored)
+_JAX_LOADERS = ((jax_native, "grouping", ("_NATIVE_DIR", "_LIB_PATH", "_lib", "_lib_failed")),
+                (jax_flac, "flacdec", ("_NATIVE_DIR", "_LIB_PATH", "_lib")))
+
+
+@contextlib.contextmanager
+def jax_natives_in(directory: Path):
+    """Build the JAX package's grouping engine and FLAC decoder from
+    `native/` with `utils.native_build` (file lock, temp name renamed into
+    place, the Makefile's flags) into `directory`, and point the JAX
+    loaders there, with no library loaded and no failure recorded, until
+    the block ends; then restore every attribute. The loaders find no
+    source in `directory`, so they never run `make`."""
+    build_dir, native_build.BUILD_DIR = native_build.BUILD_DIR, Path(directory)
+    try:
+        libs = {name: native_build.build(name) for _, name, _ in _JAX_LOADERS}
+    finally:
+        native_build.BUILD_DIR = build_dir
+    saved = [(mod, attr, getattr(mod, attr)) for mod, _, attrs in _JAX_LOADERS
+             for attr in attrs]
+    try:
+        for mod, name, attrs in _JAX_LOADERS:
+            mod._NATIVE_DIR, mod._LIB_PATH, mod._lib = Path(directory), libs[name], None
+            if "_lib_failed" in attrs:
+                mod._lib_failed = False
+        yield
+    finally:
+        for mod, attr, value in saved:
+            setattr(mod, attr, value)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def private_jax_natives(tmp_path_factory):
+    with jax_natives_in(tmp_path_factory.mktemp("jax_native")):
+        yield
 
 
 def _lp(rng, t_len, scale=1.0):
@@ -106,6 +155,22 @@ def test_native_matches_python_randomized(trial):
         ExpansionPolicyConfig("aggressive_tail", 16, 4, 2),
     ))
     _assert_native_is_python(transcript, _lp(rng, t_len, rng.uniform(0.5, 3.0)), hp)
+
+
+def test_comparison_holds_after_the_jax_loader_failed(tmp_path, monkeypatch):
+    """A worker whose JAX grouping loader already failed (it keeps
+    `_lib_failed` for good, so `require` raises) still compares: the private
+    build resets the loader, and the old state comes back after the block."""
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_lib_failed", True)
+    lp = _lp(np.random.default_rng(7), 80)
+    with pytest.raises(RuntimeError, match="native grouping required"):
+        _group(jax_grouping, "require", "THE CAT", lp, AlignerHyperParams())
+    with jax_natives_in(tmp_path):
+        assert jax_native._LIB_PATH == tmp_path / "libgrouping.so"
+        assert [w.word for w in _assert_native_is_python("THE CAT", lp)] == ["THE", "CAT"]
+        assert jax_native._lib is not None and not jax_native._lib_failed
+    assert jax_native._lib is None and jax_native._lib_failed
 
 
 def test_native_off_and_measure_hook_use_python(monkeypatch):

@@ -47,6 +47,10 @@ from wav2vec2_tpu_torch.pipeline.builder import ForcedAlignerBuilder
 from wav2vec2_tpu_torch.pipeline.onnx_runtime import OnnxRuntimeBackend
 from wav2vec2_tpu_torch.utils.checkpoint import save_safetensors
 
+# the JAX package's grouping engine and FLAC decoder, built privately for
+# this module (test_torch_port_native.py says why)
+from test_torch_port_native import private_jax_natives  # noqa: E402,F401
+
 REPO = Path(__file__).resolve().parent.parent
 
 CFG_KW = dict(

@@ -90,13 +90,13 @@ def check_cuda(timeout_s: float = 90.0) -> bool:
 
 
 def _kernel_symbols() -> list[str]:
-    from .ops import viterbi_cuda
+    from .ops import flash_attention, viterbi_cuda
 
     names = [f"viterbi_{n}_launch" for n in ("k1_device", "k1_resident", "k2", "k3", "k4")]
     names += [f"viterbi_{tier}_smem_bytes" for tier in viterbi_cuda.TIERS]
     names += ["viterbi_k1_resident", "viterbi_blocked_strip", "viterbi_k1_strip"]
-    names += ["flash_attention_mma_launch", "flash_attention_fma_launch",
-              "flash_attention_smem_bytes"]
+    names += [f"flash_attention_{kernel}_launch" for kernel in flash_attention._KERNELS.values()]
+    names += ["flash_attention_smem_bytes"]
     return names
 
 

@@ -9,10 +9,12 @@ There is no fallback from the kernel to the plain version. K5 has no
 backward, so `flash_attention` raises where autograd would record it (grad
 mode on and an input requiring grad), on either device. The kernel
 follows the dtype (`kernel_for`): bf16 runs on the tensor cores
-(`flash_attention_mma_kernel`: bf16 operands, f32 accumulation, as the
-TPU's bf16 path), f32 as exact FMAs on the CUDA cores
+(`flash_attention_wgmma_kernel`: wgmma fed by a TMA ring, bf16 operands,
+f32 accumulation, as the TPU's bf16 path; head dims 16, 32, 64, 80 and
+128, none zero-filled), f32 as exact FMAs on the CUDA cores
 (`flash_attention_fma_kernel`: the TPU's Precision.HIGHEST path of the
-parity forward). `launches["k5"]` counts the launches of both.
+parity forward; head dims 1..128). `launches["k5"]` counts the launches
+of both.
 
 The relative table is `rel_table_rev`: R_rev[h, m] = (pe_{T_pad−m} ·
 W_pos)[h·hd : (h+1)·hd] for m ∈ [0, 2·T_pad), over the Transformer-XL
@@ -56,13 +58,18 @@ from .cuda_build import MAX_SMEM_BYTES, library
 BLOCK_Q = 256  # T is padded to a multiple of this, as in the JAX package
 HEAD_DIM_CAP = 128
 FORCE_ENV = "WAV2VEC2_FLASH_FORCE"
-# the kernels' tiles (csrc/flash_attention.cu): 64 query rows (the FMA
-# kernel), 64 keys
+# the FMA kernel's tiles (csrc/flash_attention.cu): 64 query rows, 64 keys
 KERNEL_BQ = 64
 KERNEL_BK = 64
+# the wgmma kernel's: 128 query rows (two consumer warpgroups of 64), a
+# two-stage ring of key tiles, the head dims it serves
+WGMMA_BQ = 128
+WGMMA_STAGES = 2
+WGMMA_HEAD_DIMS = (16, 32, 64, 80, 128)
+TMA_ALIGN = 16  # bytes: TMA's and the bulk copy's base alignment
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
-# dtype -> kernel: "mma" on the tensor cores, "fma" on the CUDA cores
-_KERNELS = {torch.bfloat16: "mma", torch.float32: "fma"}
+# dtype -> kernel: "wgmma" on the tensor cores, "fma" on the CUDA cores
+_KERNELS = {torch.bfloat16: "wgmma", torch.float32: "fma"}
 launches = {"k5": 0}
 
 
@@ -108,15 +115,25 @@ def flash_forced() -> bool:
 
 
 def _template_width(head_dim: int) -> int:
-    """The kernel template that serves `head_dim` (0 if none does)."""
+    """The FMA kernel's template that serves `head_dim` (0 if none does)."""
     for width in (16, 32, 64, HEAD_DIM_CAP):
         if 1 <= head_dim <= width:
             return width
     return 0
 
 
+def wgmma_key_tile(head_dim: int, rel: bool) -> int:
+    """Keys a stage of the wgmma kernel's ring holds: 128 for plain
+    attention; with the R window 64 (at 128 the score, position and output
+    accumulators would spill), 32 at head dim 128 (two stages would not
+    fit)."""
+    if not rel:
+        return 128
+    return 64 if head_dim <= 80 else 32
+
+
 def kernel_for(dtype: torch.dtype) -> str | None:
-    """The kernel a CUDA tensor of `dtype` launches: "mma" (bf16, tensor
+    """The kernel a CUDA tensor of `dtype` launches: "wgmma" (bf16, tensor
     cores), "fma" (f32, CUDA cores), or None (no kernel takes the dtype)."""
     return _KERNELS.get(dtype)
 
@@ -124,20 +141,25 @@ def kernel_for(dtype: torch.dtype) -> str | None:
 def smem_bytes(head_dim: int, dtype: torch.dtype, rel: bool) -> int:
     """Shared memory one block of `kernel_for(dtype)` needs:
     `flash_attention_smem_bytes` of the CUDA source (chip_smoke.py holds the
-    two equal); 0 if no template serves `head_dim` or the dtype."""
-    width, kernel = _template_width(head_dim), kernel_for(dtype)
-    if not width or not kernel:
+    two equal); 0 if the kernel does not serve `head_dim`, or no kernel
+    takes the dtype."""
+    kernel = kernel_for(dtype)
+    if kernel == "wgmma":
+        if head_dim not in WGMMA_HEAD_DIMS:
+            return 0
+        # bf16 rows of hd columns, nothing past hd: q[, q_pos], then per
+        # stage K, V[, an R window of 128 + BK rows]; with rel, one
+        # [16, BK + 8] f32 shear slab for each of the 8 consumer warps; the
+        # stages' f32 key masks; 2·stages + 1 mbarriers; 1 KiB to align the
+        # base for the 128-byte swizzle
+        bk, row = wgmma_key_tile(head_dim, rel), 2 * head_dim
+        tiles = (WGMMA_BQ * (2 if rel else 1)
+                 + WGMMA_STAGES * (2 * bk + (WGMMA_BQ + bk if rel else 0))) * row
+        slab = 8 * 16 * (bk + 8) * 4 if rel else 0
+        return tiles + slab + WGMMA_STAGES * bk * 4 + (2 * WGMMA_STAGES + 1) * 8 + 1024
+    width = _template_width(head_dim)
+    if kernel != "fma" or not width:
         return 0
-    if kernel == "mma":
-        # warps of 16 query rows: 8 up to width 64, 4 at 128. bf16 rows of
-        # stride width + 8: q[, q_pos], two stages of K, V[, an R window of
-        # block rows + 64]; with rel, one [16, 72] f32 bd tile a warp; two
-        # stages of the key tile's f32 mask
-        warps = 8 if width <= 64 else 4
-        bq = 16 * warps
-        rows = bq * (2 if rel else 1) + 2 * (2 * KERNEL_BK + (bq + KERNEL_BK if rel else 0))
-        bd = warps * 16 * (KERNEL_BK + 8) * 4 if rel else 0
-        return rows * (width + 8) * 2 + bd + 2 * KERNEL_BK * 4
     # f32 rows of stride width + 1: q, k, v[, q_pos, a 127-row R window],
     # then the [64, 68] f32 score tile and three row vectors
     rows = KERNEL_BQ + 2 * KERNEL_BK + (2 * KERNEL_BQ + KERNEL_BK - 1 if rel else 0)
@@ -157,16 +179,27 @@ def fits(head_dim: int, dtype: torch.dtype, rel: bool) -> bool:
 
 
 def check_fits(head_dim: int, dtype: torch.dtype, rel: bool) -> None:
-    """Raise ValueError where the kernel would be refused: a head_dim no
-    template serves, a dtype other than f32/bf16, or more shared memory
-    than a block can have."""
+    """Raise ValueError where the kernel would be refused: a head_dim the
+    dtype's kernel does not serve (f32: 1..128; bf16: 16, 32, 64, 80, 128),
+    a dtype other than f32/bf16, or more shared memory than a block can
+    have."""
     if not fits(head_dim, dtype, rel):
         raise ValueError(
             f"the K5 kernel takes head_dim 1..{HEAD_DIM_CAP} in float32 or "
-            f"bfloat16 within {MAX_SMEM_BYTES} B of shared memory per block; "
-            f"got head_dim={head_dim}, {dtype}, rel={rel} "
+            f"{'/'.join(map(str, WGMMA_HEAD_DIMS))} in bfloat16 within {MAX_SMEM_BYTES} B "
+            f"of shared memory per block; got head_dim={head_dim}, {dtype}, rel={rel} "
             f"({smem_bytes(head_dim, dtype, rel)} B)"
         )
+
+
+def check_tma_aligned(**tensors: torch.Tensor | None) -> None:
+    """Raise ValueError unless every tensor given starts on TMA's 16-byte
+    alignment (the wgmma kernel's maps and mask copy; its row strides, hd·2
+    bytes at a served head dim, always are)."""
+    for name, x in tensors.items():
+        if x is not None and x.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"{name} starts at {x.data_ptr():#x}, not on the "
+                             f"{TMA_ALIGN}-byte alignment the K5 kernel's TMA loads need")
 
 
 def use_flash(head_dim: int, rel: bool = False,
@@ -206,15 +239,17 @@ def _launch(q, k, v, mask, q_pos, rel_r, scale: float) -> torch.Tensor:
         raise ValueError(f"mask must be a contiguous float32 [{b}, {t_pad}] tensor "
                          f"on {q.device}")
     check_fits(hd, q.dtype, rel)
-    lib = _library()
+    kernel = kernel_for(q.dtype)
     out = torch.empty_like(q)
+    if kernel == "wgmma":
+        check_tma_aligned(q=q, k=k, v=v, q_pos=q_pos, rel_r=rel_r, mask=mask, out=out)
+    lib = _library()
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        kernel = kernel_for(q.dtype)
         err = getattr(lib, f"flash_attention_{kernel}_launch")(
             q.data_ptr(), ptr(q_pos), k.data_ptr(), v.data_ptr(), ptr(rel_r), ptr(mask),
             out.data_ptr(), b, nh, t_pad, hd, float(scale), stream,
