@@ -6,13 +6,19 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 It builds the CUDA kernels from `wav2vec2_tpu_torch/csrc/` with one
 `nvcc` call (the Viterbi kernel K1 in its two modes, its blocked tiers K2,
-K3, K4, and the fused rel-pos attention kernel K5), reads the bf16 K5
-kernel's SASS (`cuobjdump -sass`: each of its instantiations must hold
-wgmma (HGMMA) and TMA loads (UTMALDG), and none mma.sync (HMMA)), holds
-each kernel against its plain PyTorch version (the Viterbi kernels also
-against the numpy oracle, K4 against K1 at hour scale; K5 also timed at
-the (m2) mesh's local tiles), and drives the port's paths through the
-entry points a user calls, with random weights from a numpy seed:
+K3, K4, and the fused rel-pos attention kernel K5 in its two kernels),
+reads K5's SASS (`cuobjdump -sass`: each instantiation of the bf16 kernel
+must hold wgmma (HGMMA) and TMA loads (UTMALDG) and none mma.sync (HMMA);
+each of the f32 kernel TMA loads and FFMA, and no tensor-core (HGMMA,
+HMMA) or TF32 instruction), holds each kernel against its plain PyTorch
+version (the Viterbi kernels also against the numpy oracle, K4 against K1
+at hour scale; the f32 K5 also at head dims off its widths), times K5 at
+the shapes the main paths give it (bf16 at the (m2) mesh's local tiles;
+f32 at the conformer's, the forced plain forwards' at head dims 64 and
+80, the online window, long-form's 30 s chunk and the mesh tiles, each
+beside its plain version, SDPA on the same f32 inputs and its bound), and
+drives the port's paths through the entry points a user calls, with
+random weights from a numpy seed:
 
 - wav2vec2-base at full width: `BatchAligner.submit_padded_batch` on
   32 × 10 s with the gates of `bench.py` (K1), and on a long bucket that
@@ -23,8 +29,9 @@ entry points a user calls, with random weights from a numpy seed:
 - wav2vec2-conformer-rel-pos-large at full width and depth:
   `BatchAligner.submit_padded_batch` on 32 × 10 s with the gates of
   `bench.py` (K5 once per layer and forward, K1), the f32 forward through
-  K5 against the f32 factorized forward, and `ForcedAlignerBuilder` on a
-  4-block model directory (no K5, as in the JAX package);
+  K5 against the f32 factorized forward, timed with K5's share of it,
+  and `ForcedAlignerBuilder` on a 4-block model directory (no K5, as in
+  the JAX package);
 - the `alignment_report` CLI in process at the full width and depth of
   wav2vec2-base, on a LibriSpeech-layout dataset of 64 FLAC utterances
   written by the port's encoder (2–32 s, so every bucket of its 1 s pow2
@@ -108,8 +115,9 @@ beside their plain versions, their bounds and, for K5, one PyTorch call
 computing the same function; the forwards, the long-form path and the
 batch paths with their drain on CUDA events around whole calls. Every failure raises and the exit code is non-zero; without a CUDA
 device it exits non-zero before running anything. The line before the
-last is the `kernels` JSON object; the last line of standard output is one
-JSON object naming the device.
+last is the `kernels` JSON object (K5's bf16 and f32 kernels in rows of
+their own, with their launches on the paths); the last line of standard
+output is one JSON object naming the device.
 """
 
 from __future__ import annotations
@@ -415,21 +423,24 @@ def interleaved_ms(kernel, plain, kernel_launches, plain_repeats):
 def reset_launches():
     from wav2vec2_tpu_torch.ops import flash_attention, viterbi_cuda
 
-    for counts in (viterbi_cuda.launches, viterbi_cuda.k1_launches, flash_attention.launches):
+    for counts in (viterbi_cuda.launches, viterbi_cuda.k1_launches, flash_attention.launches,
+                   flash_attention.kernel_launches):
         for name in counts:
             counts[name] = 0
 
 
 def read_launches():
-    """Launches per kernel since `reset_launches`, and K1's per mode
-    ("k1_resident", "k1_device")."""
+    """Launches per kernel since `reset_launches`, K1's per mode
+    ("k1_resident", "k1_device") and K5's per kernel ("k5_wgmma": bf16,
+    "k5_fma": f32)."""
     import torch
 
     from wav2vec2_tpu_torch.ops import flash_attention, viterbi_cuda
 
     torch.cuda.synchronize()
     return {**viterbi_cuda.launches, **flash_attention.launches,
-            **{f"k1_{mode}": n for mode, n in viterbi_cuda.k1_launches.items()}}
+            **{f"k1_{mode}": n for mode, n in viterbi_cuda.k1_launches.items()},
+            **{f"k5_{kernel}": n for kernel, n in flash_attention.kernel_launches.items()}}
 
 
 def batch_inputs(rng, vocab, batch, seconds, n_words=None, s_pad=S_PAD):
@@ -1454,10 +1465,10 @@ def time_batch_path(aligner, vocab, batch, repeats):
 def flash_cases():
     """(name, B, NH, T, hd, dtype, rel, masked) for K5 against its plain
     version: both dtypes (bf16 through the wgmma kernel, f32 through the
-    FMA kernel), rel on and off, masked and unmasked, at odd T (37 and 255
+    exact FMA kernel fed by TMA), rel on and off, masked and unmasked, at odd T (37 and 255
     pad to 256, 257 and 499 to 512, 1 499 — the 30 s chunk — to 1 536) and
-    head dims 16, 32, 64, 128 and 80 (two column chunks, 64 + 16, in the
-    wgmma kernel); bf16 at T = 1 499 with hd 64 and 128; then the slice's
+    head dims 16, 32, 64, 128 and 80 (column chunks: 64 + 16 in the wgmma
+    kernel, 32 + 32 + 16 in the f32 one); bf16 at T = 1 499 with hd 64 and 128; then the slice's
     shape with B cut to 4 (bf16) and 2 (f32)."""
     cases = []
     for t, hd in ((37, 32), (255, 64), (257, 128), (499, 64), (1499, 32), (100, 80),
@@ -1522,13 +1533,13 @@ def flash_plain(q, k, v, mask, q_pos, rel_r, scale):
 def check_flash(device, cases):
     """K5 vs its plain version on every case, within FLASH_REL_BOUND
     relative to the largest output; one launch per case. Returns the
-    largest absolute difference."""
+    largest absolute difference by dtype."""
     import torch
 
     from wav2vec2_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.default_rng(12)
-    worst, lines = 0.0, []
+    worst, lines = {}, []
     for name, b, nh, t, hd, dtype, rel, masked in cases:
         q, k, v, mask, q_pos, rel_r = flash_inputs(rng, b, nh, t, hd, dtype, rel, masked,
                                                    device)
@@ -1539,11 +1550,26 @@ def check_flash(device, cases):
         if not (torch.isfinite(got).all() and rel_err <= FLASH_REL_BOUND[dtype]):
             raise AssertionError(f"K5 [{name}]: relative error {rel_err} against the plain "
                                  f"version (bound {FLASH_REL_BOUND[dtype]})")
-        worst = max(worst, err)
+        worst[dtype] = max(worst.get(dtype, 0.0), err)
         lines.append(f"{name}: {rel_err:.2e}")
     print(f"kernel check k5: {len(cases)} cases within {FLASH_REL_BOUND} of the plain version "
           f"(relative max error): " + "; ".join(lines))
     return worst
+
+
+# f32 head dims off the widths 16, 32, 64, 80, 96, 128 (the next width runs
+# them with TMA's zeros past hd) and not multiples of 4 (padded to one by
+# the wrapper): every f32 head dim 1..128 stays served
+F32_ODD_HEAD_DIMS = (1, 6, 12, 36, 48, 68, 84, 100, 127)
+
+
+def check_flash_head_dims(device):
+    """The f32 kernel at `F32_ODD_HEAD_DIMS`, rel and plain, masked, at T=257
+    (T_pad 512), against its plain version within FLASH_REL_BOUND. Returns
+    the largest absolute difference."""
+    cases = [(f"T=257 hd={hd} float32 rel={int(rel)} mask=1", 2, 2, 257, hd, "float32", rel,
+              True) for hd in F32_ODD_HEAD_DIMS for rel in (True, False)]
+    return check_flash(device, cases)["float32"]
 
 
 def flash_bound(b, nh, t_pad, hd, elem_bytes, peak_ops, rel=True):
@@ -1562,12 +1588,21 @@ def flash_bound(b, nh, t_pad, hd, elem_bytes, peak_ops, rel=True):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+K5_SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "FFMA", "TF32")
+# K5's kernels by dtype: their SASS function names and instantiations
+K5_SASS_KERNELS = {"bfloat16": ("flash_attention_wgmma_kernel", 10),
+                   "float32": ("flash_attention_f32_kernel", 12)}
+
+
 def k5_sass(library: str) -> dict:
-    """Instructions of the bf16 K5 kernel in the built library's SASS
-    (`cuobjdump -sass`): {"functions": its instantiations, "HGMMA",
-    "UTMALDG", "HMMA": totals over them, "lacking": instantiations with no
-    HGMMA or no UTMALDG}. The wgmma kernel shows HGMMA (wgmma) and UTMALDG
-    (TMA loads) in each instantiation and no HMMA (mma.sync)."""
+    """Instructions of K5's kernels in the built library's SASS
+    (`cuobjdump -sass`), by dtype: {"functions": instantiations, "HGMMA",
+    "UTMALDG", "HMMA", "FFMA", "TF32": totals over them, "lacking":
+    instantiations that do not show their kernel's instructions}. The bf16
+    wgmma kernel shows HGMMA (wgmma) and UTMALDG (TMA loads) in each
+    instantiation and no HMMA (mma.sync); the f32 kernel UTMALDG and FFMA
+    in each and no tensor-core instruction (HGMMA, HMMA) and no TF32
+    operand anywhere."""
     import re
 
     from wav2vec2_tpu_torch.ops import cuda_build
@@ -1575,22 +1610,55 @@ def k5_sass(library: str) -> dict:
     cuobjdump = Path(cuda_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", library], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    ops = {op: re.compile(rf"\b{op}\b") for op in ("HGMMA", "UTMALDG", "HMMA")}
+    ops = {op: re.compile(rf"\b{op}\b") for op in K5_SASS_OPS}
+    ops["TF32"] = re.compile("tf32", re.IGNORECASE)  # a TF32 operand type anywhere
     per_function, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            current = name if "flash_attention_wgmma_kernel" in name else None
+            current = next((dtype for dtype, (kernel, _) in K5_SASS_KERNELS.items()
+                            if kernel in name), None)
             if current:
+                current = (current, name)
                 per_function[current] = dict.fromkeys(ops, 0)
         elif current:
             for op, pattern in ops.items():
                 per_function[current][op] += bool(pattern.search(line))
-    counts = {op: sum(c[op] for c in per_function.values()) for op in ops}
-    counts["functions"] = len(per_function)
-    counts["lacking"] = [name for name, c in per_function.items()
-                         if not c["HGMMA"] or not c["UTMALDG"]]
-    return counts
+    need = {"bfloat16": ("HGMMA", "UTMALDG"), "float32": ("UTMALDG", "FFMA")}
+    result = {}
+    for dtype in K5_SASS_KERNELS:
+        funcs = {name: c for (d, name), c in per_function.items() if d == dtype}
+        counts = {op: sum(c[op] for c in funcs.values()) for op in ops}
+        counts["functions"] = len(funcs)
+        counts["lacking"] = [name for name, c in funcs.items()
+                             if not all(c[op] for op in need[dtype])]
+        result[dtype] = counts
+    return result
+
+
+def check_k5_sass(sass: dict) -> None:
+    """Fail unless each K5 kernel has all its instantiations, each with its
+    instructions, the bf16 kernel no mma.sync, and the f32 kernel no
+    tensor-core or TF32 instruction (its products exact FMAs)."""
+    for dtype, (kernel, n) in K5_SASS_KERNELS.items():
+        c = sass[dtype]
+        bad = c["functions"] != n or c["lacking"] or c["HMMA"]
+        if dtype == "float32":
+            bad = bad or c["HGMMA"] or c["TF32"]
+        if bad:
+            raise AssertionError(f"the {dtype} K5 kernel's SASS ({kernel}): {c}; want {n} "
+                                 "instantiations, each with its instructions")
+
+
+def sdpa_backend(q, k, v, attn_mask, scale) -> str:
+    """The backend scaled_dot_product_attention picks for these arguments,
+    as its dispatcher chooses it (`torch._fused_sdp_choice`): "math",
+    "flash_attention", "efficient_attention" or "cudnn_attention"."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    choice = torch._fused_sdp_choice(q, k, v, attn_mask=attn_mask, scale=scale)
+    return SDPBackend(choice).name.lower()
 
 
 def time_flash(device, card, self_attn, b, nh, t, hd):
@@ -1600,9 +1668,9 @@ def time_flash(device, card, self_attn, b, nh, t, hd):
     version, one library call (scaled_dot_product_attention with the
     position term and mask as a precomputed bf16 bias), and the port's
     factorized attention core at the same shape (layer 0's biases and
-    linear_pos), and the f32 FMA kernel at the same shape (the conformer's
-    f32 forward launches it). Checks both kernels against the plain
-    version there too."""
+    linear_pos), and the f32 kernel at the same shape (the conformer's f32
+    forward launches it; `time_flash_shape`). Checks both kernels against
+    the plain version there too."""
     import torch
     import torch.nn.functional as F
 
@@ -1641,20 +1709,6 @@ def time_flash(device, card, self_attn, b, nh, t, hd):
                                        nh * hd)
         core()
         core_ms = kernel_ms(core, 10)
-    # the f32 launches of the conformer's parity forward: the FMA kernel
-    q32, k32, v32, mask32, q_pos32, rel_r32 = flash_inputs(rng, b, nh, t, hd, "float32", True,
-                                                           True, device)
-    got32 = fa.flash_attention(q32, k32, v32, mask32, q_pos=q_pos32, rel_r=rel_r32, scale=scale)
-    want32 = flash_plain(q32, k32, v32, mask32, q_pos32, rel_r32, scale)
-    f32_rel = float((got32 - want32).abs().max()) / float(want32.abs().max())
-    if f32_rel > FLASH_REL_BOUND["float32"]:
-        raise AssertionError(f"K5 f32 at the slice's shape: relative error {f32_rel}")
-    del got32, want32
-    p32 = fa.pad_inputs(q32, k32, v32, mask32, q_pos32, rel_r32)
-    f32_ms = kernel_ms(lambda: fa.flash_attention(*p32[:4], q_pos=p32[4], rel_r=rel_r32,
-                                                  scale=scale), 10)
-    f32_bound, f32_by = flash_bound(b, nh, t_pad, hd, 4, PEAK_F32_OPS_PER_S)
-    del q32, k32, v32, p32
     bound_ms, bound_by = flash_bound(b, nh, t_pad, hd, 2, PEAK_BF16_OPS_PER_S)
     work = 6 * t_pad * t_pad * hd * b * nh
     print(f"time: K5 bf16 (wgmma kernel) {work / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s of the "
@@ -1664,16 +1718,14 @@ def time_flash(device, card, self_attn, b, nh, t, hd):
           f"T={t} (T_pad={t_pad}) hd={hd} bf16 rel mask (device time, medians; plain, kernel, "
           f"kernel, plain); bound {bound_ms:.4f} ms by {bound_by}; relative error "
           f"{rel_err:.2e} {card}")
-    print(f"time: K5 f32 (FMA kernel, the parity forward's launches) {f32_ms:.4f} ms vs bf16 "
-          f"{k_ms:.4f} ms at B={b} NH={nh} T={t} (T_pad={t_pad}) hd={hd} rel mask; f32 bound "
-          f"{f32_bound:.4f} ms by {f32_by} (67 TFLOP/s f32); relative error {f32_rel:.2e}"
-          f" (device time, median of 10) {card}")
+    # the f32 launches of the conformer's parity and default forwards
+    f32 = time_flash_shape(device, card, b, nh, t, hd, rel=True, dtype="float32")
     print(f"time: library call scaled_dot_product_attention(q, k, v, attn_mask=bd*scale + "
           f"mask, scale) {lib_ms:.4f} ms at the same shape (bd precomputed, its construction "
           f"excluded; relative difference to the plain version {lib_err:.2e}); the port's "
           f"factorized attention core {core_ms:.4f} ms (device time, medians) {card}")
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=bound_by, err=err, f32_ms=f32_ms)
+                bound_by=bound_by, err=err, f32=f32)
 
 
 def kernel_time_split(fwd, ranges=()):
@@ -1762,8 +1814,8 @@ def run_conformer(device, vocab, card):
     the batch entry (bf16, gates of bench.py; counted: K5 once per layer in
     each of the bf16 and f32 forwards, K1), then the f32 forward through K5
     against the f32 factorized forward (<= 1e-3 relative on the logits),
-    the forward with and without K5, the frontend alone, the forward's
-    device time by kernel group, the batch path's realtime factor and
+    the forward with and without K5, the f32 forward's time and K5's share
+    of it, the frontend alone, the forward's device time by kernel group, the batch path's realtime factor and
     peak memory, and K5 at the slice's shape. Returns (path counts, K5
     times, the bf16 device params)."""
     import dataclasses
@@ -1802,9 +1854,23 @@ def run_conformer(device, vocab, card):
         if not (torch.isfinite(on).all() and flag_err <= 1e-3):
             raise AssertionError(f"conformer f32 forward through K5 vs factorized: relative "
                                  f"error {flag_err} (bound 1e-3)")
-        del on, off, params
+        del on, off
         print(f"conformer f32 forward through K5 vs the factorized forward: relative max "
               f"error {flag_err:.2e} on the logits (bound 1e-3), 32 x 10 s")
+        # the f32 forward (the default of the runtime, long-form, online and
+        # the CLI) through K5's f32 kernel: its time and K5's share
+        f32_ms = cuda_time_ms(lambda: forward(params, True, torch.float32), 3)
+        f32_groups, f32_busy, _, _ = kernel_time_split(lambda: forward(params, True,
+                                                                       torch.float32))
+        del params
+        f32_split = ("not measured (torch.profiler saw no CUDA kernel)" if not f32_busy else
+                     f"K5 {f32_groups['K5']:.3f} ms of {f32_busy:.3f} busy ms "
+                     f"({f32_groups['K5'] / f32_busy:.1%}; GEMM {f32_groups['GEMM']:.3f}, "
+                     f"convolution {f32_groups['convolution']:.3f}, other "
+                     f"{f32_groups['other']:.3f})")
+        print(f"time: conformer rel-pos large f32 forward through K5 {f32_ms:.3f} ms, 32 x 10 "
+              f"s (CUDA events, median of 3); by kernel (torch.profiler, one forward): "
+              f"{f32_split} {card}")
         fwd = {}
         for flash in (False, True, True, False):
             forward(aligner.params, flash, torch.bfloat16)
@@ -1839,6 +1905,7 @@ def run_conformer(device, vocab, card):
     nh = cfg.num_attention_heads
     k5 = time_flash(device, card, self_attn, 32, nh, cfg.conv_output_length(inputs[0].shape[1]),
                     cfg.hidden_size // nh)
+    k5["f32_forward"] = dict(ms=f32_ms, k5_ms=f32_groups["K5"], busy_ms=f32_busy)
     return counts, k5, params_np
 
 
@@ -2071,7 +2138,9 @@ def forced_k5(name, cfg, bf16, f32, inputs, audio):
     position-free attention, never its relative_key blocks) in the f32 and
     the bf16 forward, the f32 forward within 1e-3 relative of the default
     forward's logits (the conformer's gate), the bf16 log-probs within
-    bench.py's gate of the default f32 ones. Returns the K5 launches."""
+    bench.py's gate of the default f32 ones (the f32 launches in the f32
+    kernel, the bf16 ones in the wgmma kernel). Returns the K5 launches
+    ("k5", and by kernel "k5_fma", "k5_wgmma")."""
     import dataclasses
 
     import torch
@@ -2086,11 +2155,12 @@ def forced_k5(name, cfg, bf16, f32, inputs, audio):
         try:
             reset_launches()
             forced = wav2vec2_forward(f32.params, audio, cfg, audio_lens=inputs[1])
-            n32 = read_launches()["k5"]
+            c32 = read_launches()
             reset_launches()
             forced_bf16 = wav2vec2_forward(bf16.params, audio, cfg, audio_lens=inputs[1],
                                            compute_dtype=torch.bfloat16)
-            n16 = read_launches()["k5"]
+            c16 = read_launches()
+            n32, n16 = c32["k5"], c16["k5"]
         finally:
             del os.environ[fa.FORCE_ENV]
         rel_err = float((forced - default).abs().max()) / float(default.abs().max())
@@ -2101,8 +2171,8 @@ def forced_k5(name, cfg, bf16, f32, inputs, audio):
     bert = cfg.encoder_style == "conformer_bert"
     n_layers = cfg.num_adapter_layers if bert else cfg.num_hidden_layers
     what = "adapter layers" if bert else "layers"
-    if n32 != n_layers or n16 != n_layers:
-        raise AssertionError(f"{name} forced: K5 launched {n32} (f32) and {n16} (bf16) times "
+    if not n32 == c32["k5_fma"] == n16 == c16["k5_wgmma"] == n_layers:
+        raise AssertionError(f"{name} forced: K5 launched {c32} (f32) and {c16} (bf16) "
                              f"for {n_layers} {what}")
     if not rel_err <= 1e-3:
         raise AssertionError(f"{name} forced: f32 forward through K5 vs the default: relative "
@@ -2113,7 +2183,7 @@ def forced_k5(name, cfg, bf16, f32, inputs, audio):
           f"{width // cfg.num_attention_heads}); f32 logits vs the default forward "
           f"relative max error {rel_err:.2e} (bound 1e-3); bf16 log-probs vs default f32 "
           f"mean|Δ|={mean_d:.4f} p99|Δ|={p99_d:.4f}")
-    return n32 + n16
+    return {key: c32[key] + c16[key] for key in ("k5", "k5_fma", "k5_wgmma")}
 
 
 def time_family(card, name, aligner, vocab):
@@ -2157,59 +2227,88 @@ def time_family(card, name, aligner, vocab):
                 **spans)
 
 
-def time_flash_shape(device, card, b, nh, t, hd, rel=False):
-    """K5 at one bf16 masked shape: the kernel alone, its plain version
-    and scaled_dot_product_attention (with `rel`, given the position term
-    and the mask as a precomputed bf16 bias, its construction excluded),
-    with the bound of the 4·T_pad²·hd operations a (batch, head) does (q·kᵀ
-    and P·V; 6·T_pad²·hd with `rel`). Plain masked attention at B=32,
-    NH=16, T=499 (T_pad 512) is the shape of the forced forwards at 32 x 10
-    s (head dim 80 as two column chunks, 64 + 16); B=1, NH=16, T=249
-    (T_pad 256) with `rel` is an online window of the conformer rel-pos
-    large; B=4 NH=16 and B=8 NH=8 at T=499 with `rel` are the (m2) mesh's
-    local tiles."""
+def time_flash_shape(device, card, b, nh, t, hd, rel=False, dtype="bfloat16"):
+    """K5 at one masked shape in `dtype`: the kernel alone, its plain
+    version and scaled_dot_product_attention on the same dtype (with `rel`,
+    given the position term and the mask as a precomputed bias, its
+    construction excluded; the backend it picked named), with the bound of
+    the 4·T_pad²·hd operations a (batch, head) does (q·kᵀ and P·V;
+    6·T_pad²·hd with `rel`) at the dtype's peak (989 TFLOP/s bf16 on the
+    tensor cores, 67 f32). Plain masked attention at B=32, NH=16, T=499
+    (T_pad 512) is the shape of the forced forwards at 32 x 10 s (head dim
+    80 in column chunks); B=1, NH=16, T=249 (T_pad 256) with `rel` is an
+    online window of the conformer rel-pos large; B=4 NH=16 and B=8 NH=8
+    at T=499 with `rel` are the (m2) mesh's local tiles (f32 there); T=1
+    499 (T_pad 1 536) is long-form's 30 s chunk (f32 by default)."""
     import torch
     import torch.nn.functional as F
 
+    from wav2vec2_tpu_torch.models.layers import full_f32_precision
     from wav2vec2_tpu_torch.ops import flash_attention as fa
     from wav2vec2_tpu_torch.ops import flash_attention_ref
 
     scale = hd ** -0.5
     rng = np.random.default_rng(14)
-    q, k, v, mask, q_pos, rel_r = flash_inputs(rng, b, nh, t, hd, "bfloat16", rel, True,
-                                               device)
+    q, k, v, mask, q_pos, rel_r = flash_inputs(rng, b, nh, t, hd, dtype, rel, True, device)
     pq, pk, pv, pmask, pq_pos = fa.pad_inputs(q, k, v, mask, q_pos, rel_r)
+    del q, k, v, mask, q_pos
     t_pad = pq.shape[2]
     kernel = lambda: fa.flash_attention(pq, pk, pv, pmask, q_pos=pq_pos,  # noqa: E731
                                         rel_r=rel_r, scale=scale)
-    plain = lambda: flash_attention_ref.attention(pq, pk, pv, pmask, q_pos=pq_pos,  # noqa: E731
-                                                  rel_r=rel_r, scale=scale)
+
+    def plain():
+        with full_f32_precision():
+            return flash_attention_ref.attention(pq, pk, pv, pmask, q_pos=pq_pos, rel_r=rel_r,
+                                                 scale=scale)
+
     got, want = kernel().float(), plain().float()
     err = float((got - want).abs().max())
     rel_err = err / float(want.abs().max())
-    if rel_err > FLASH_REL_BOUND["bfloat16"]:
-        raise AssertionError(f"K5 B={b} T={t} hd={hd} rel={rel}: relative error {rel_err}")
-    k_ms, p_ms = interleaved_ms(kernel, plain, 20, 3)
-    with torch.inference_mode():
+    del got, want
+    if rel_err > FLASH_REL_BOUND[dtype]:
+        raise AssertionError(f"K5 {dtype} B={b} T={t} hd={hd} rel={rel}: relative error "
+                             f"{rel_err}")
+    f32 = dtype == "float32"
+    k_ms, p_ms = interleaved_ms(kernel, plain, 5 if f32 else 20, 3)
+    with torch.inference_mode(), full_f32_precision():
         bias = pmask[:, None, None, :]
         if rel:
             bias = flash_attention_ref.rel_scores(pq_pos, rel_r) * scale + bias
-        bias = bias.to(torch.bfloat16)
+        bias = bias.to(pq.dtype)
         library = lambda: F.scaled_dot_product_attention(pq, pk, pv, attn_mask=bias,  # noqa: E731
                                                          scale=scale)
         library()
-        lib_ms = kernel_ms(library, 20)
-    bound_ms, bound_by = flash_bound(b, nh, t_pad, hd, 2, PEAK_BF16_OPS_PER_S, rel=rel)
+        lib_ms = kernel_ms(library, 5 if f32 else 20)
+        backend = sdpa_backend(pq, pk, pv, bias, scale)
+        del bias
+    bound_ms, bound_by = flash_bound(b, nh, t_pad, hd, pq.element_size(),
+                                     PEAK_F32_OPS_PER_S if f32 else PEAK_BF16_OPS_PER_S,
+                                     rel=rel)
     what = "rel-pos masked attention" if rel else "plain masked attention (forced)"
     work = (6 if rel else 4) * t_pad * t_pad * hd * b * nh
+    kind = "f32 (exact FMA kernel)" if f32 else "bf16"
     print(f"time: K5 {what} hd={hd}: kernel {k_ms:.4f} ms vs plain "
-          f"PyTorch {p_ms:.3f} ms vs SDPA {lib_ms:.4f} ms (K5/SDPA {k_ms / lib_ms:.2f}) at B={b} "
-          f"NH={nh} T={t} (T_pad={t_pad}) bf16; {work / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s of the "
-          f"{6 if rel else 4}·T_pad²·hd work; bound {bound_ms:.4f} ms by {bound_by} "
-          f"({bound_ms / k_ms:.1%} of it); relative error {rel_err:.2e} (device time, medians) "
-          f"{card}")
+          f"PyTorch {p_ms:.3f} ms vs SDPA {lib_ms:.4f} ms ({backend}; K5/SDPA "
+          f"{k_ms / lib_ms:.2f}) at B={b} NH={nh} T={t} (T_pad={t_pad}) {kind}; "
+          f"{work / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s of the {6 if rel else 4}·T_pad²·hd work; "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({bound_ms / k_ms:.1%} of it); relative error "
+          f"{rel_err:.2e} (device time, medians) {card}")
     return dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=bound_by, err=err)
+                bound_by=bound_by, err=err, sdpa_backend=backend)
+
+
+# f32 K5 on the main paths besides the conformer's batch shape (timed in
+# `time_flash`): (b, nh, t, hd, rel) of the forced plain forwards at hd 64
+# (lv60) and 80 (mms-1b), the conformer's online window, long-form's 30 s
+# chunk and the (m2) mesh's two tiles
+F32_FLASH_SHAPES = ((32, 16, 499, 64, False), (32, 16, 499, 80, False), (1, 16, 249, 64, True),
+                    (2, 16, 1499, 64, True), (4, 16, 499, 64, True), (8, 8, 499, 64, True))
+
+
+def time_flash_f32(device, card):
+    """The f32 K5 kernel at `F32_FLASH_SHAPES` (`time_flash_shape`)."""
+    return [time_flash_shape(device, card, *shape[:4], rel=shape[4], dtype="float32")
+            for shape in F32_FLASH_SHAPES]
 
 
 def family_config_dict(cfg, model_type, n_layers):
@@ -2369,8 +2468,7 @@ def run_families(device, card, vocab):
                                                           v, units)
             _add_counts(totals, counts)
             if name in FORCED_K5_PRESETS:
-                totals["k5"] = totals.get("k5", 0) + forced_k5(name, cfg, bf16, f32, inputs,
-                                                               audio)
+                _add_counts(totals, forced_k5(name, cfg, bf16, f32, inputs, audio))
             del f32, params
             if name in TIMED_PRESETS:
                 reset_launches()
@@ -3936,12 +4034,12 @@ def main() -> int:
     print(f"build: {', '.join(s.name for s in cuda_build.SOURCES)} -> {info['library']} in "
           f"{info['seconds']:.3f} s (nvcc {' '.join(cuda_build.NVCC_FLAGS)}); ptxas: {ptxas}")
     sass = k5_sass(info["library"])
-    print(f"sass: the bf16 K5 kernel (flash_attention_wgmma_kernel, {sass['functions']} "
-          f"instantiations): HGMMA {sass['HGMMA']}, UTMALDG {sass['UTMALDG']}, HMMA "
-          f"{sass['HMMA']} instructions (cuobjdump -sass)")
-    if sass["functions"] != 10 or sass["lacking"] or sass["HMMA"]:
-        raise AssertionError(f"the bf16 K5 kernel's SASS: {sass}; want HGMMA and UTMALDG in "
-                             "each of its 10 instantiations and no HMMA")
+    for dtype, (kernel, _) in K5_SASS_KERNELS.items():
+        c = sass[dtype]
+        print(f"sass: the {dtype} K5 kernel ({kernel}, {c['functions']} instantiations): "
+              + ", ".join(f"{op} {c[op]}" for op in K5_SASS_OPS)
+              + " instructions (cuobjdump -sass)")
+    check_k5_sass(sass)
     for lib in native_build.SOURCES:
         t0 = time.perf_counter()
         path = native_build.build(lib, force=True)
@@ -3957,7 +4055,7 @@ def main() -> int:
                                      "differs from the kernel's")
         if viterbi_cuda.library_k1_mode(*shape) != viterbi_cuda.k1_mode(*shape):
             raise AssertionError(f"k1 at {shape}: the wrapper's mode differs from the kernel's")
-    for hd in (16, 32, 64, 80, 128):
+    for hd in range(1, fa.HEAD_DIM_CAP + 1):
         for dtype in (torch.float32, torch.bfloat16):
             for rel in (False, True):
                 if fa.library_smem_bytes(hd, dtype, rel) != fa.smem_bytes(hd, dtype, rel):
@@ -3973,9 +4071,13 @@ def main() -> int:
         raise AssertionError(f"K1 ran the serving case and the large case in {k1_modes}")
     for tier, tier_cases in blocked_cases(np.random.default_rng(8)).items():
         max_err[tier] = check_kernel(device, tier_cases, tier)
-    max_err["k5"] = check_flash(device, flash_cases())
+    flash_err = check_flash(device, flash_cases())
+    max_err["k5"] = flash_err["bfloat16"]
+    max_err["k5_f32"] = max(flash_err["float32"], check_flash_head_dims(device))
     for b, nh in ((4, 16), (8, 8)):  # the (m2) mesh's local conformer tiles
         time_flash_shape(device, card, b, nh, 499, 64, rel=True)
+    f32_rows = time_flash_f32(device, card)
+    max_err["k5_f32"] = max(max_err["k5_f32"], *(row["err"] for row in f32_rows))
     hour_rows = hour_scale(device, card)
     tier_crossover(device, card, hour_rows)
 
@@ -3985,7 +4087,8 @@ def main() -> int:
     params = params_from_jax(params_np, device=device)
 
     # --- the paths, each counted from 0 -----------------------------------
-    launches = {name: 0 for name in (*viterbi_cuda.TIERS, "k5", "k1_resident", "k1_device")}
+    launches = {name: 0 for name in (*viterbi_cuda.TIERS, "k5", "k1_resident", "k1_device",
+                                     "k5_wgmma", "k5_fma")}
 
     def add(counts, phase, want=None):
         for tier, n in counts.items():
@@ -4118,6 +4221,7 @@ def main() -> int:
     counts, k5_run, conformer_np = run_conformer(device, vocab, card)
     add(counts, "the conformer batch entry", "k5")
     max_err["k5"] = max(max_err["k5"], k5_run["err"])
+    max_err["k5_f32"] = max(max_err["k5_f32"], k5_run["f32"]["err"])
     counts, k5_online = run_online_conformer(device, card, conformer_np, vocab)
     add(counts, "the conformer online aligner", "k5")
     online_k5_launches = counts["k5"]
@@ -4161,9 +4265,14 @@ def main() -> int:
     if counts.get("k5", 0) < 1:
         raise AssertionError(f"the (m2) mesh ranks never launched k5: {counts}")
     for tier, e in mesh_err.items():
-        max_err[tier] = max(max_err[tier], e)
+        key = "k5_f32" if tier == "k5" else tier  # the mesh's K5 launches are f32
+        max_err[key] = max(max_err[key], e)
     print(f"time: the (m2) mesh phase took {time.perf_counter() - t_slice:.1f} s {card}")
     print(f"launch counts on the paths: {launches}")
+    if not (launches["k5_wgmma"] >= 1 and launches["k5_fma"] >= 1
+            and launches["k5_wgmma"] + launches["k5_fma"] == launches["k5"]):
+        raise AssertionError(f"K5's launches by kernel on the paths: {launches}; want both "
+                             "kernels launched, summing to k5")
     print(f"total smoke time {time.perf_counter() - t_start:.1f} s {card}")
 
     replaces = {"k1": 59, "k2": 366, "k3": 367, "k4": 368}
@@ -4187,17 +4296,30 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes a banded Viterbi path
         })
     line.append({
-        "name": "flash_attention_k5",
+        "name": "flash_attention_k5",  # bf16: flash_attention_wgmma_kernel
         "route": "cuda",
         "source": "wav2vec2_tpu_torch/csrc/flash_attention.cu",
         "replaces": "wav2vec2_tpu/ops/flash_attention.py:124",
-        "launches": launches["k5"],
+        "launches": launches["k5_wgmma"],
         "max_abs_err": max_err["k5"],
         "ms": k5_run["ms"],
         "plain_ms": k5_run["plain_ms"],
         "bound_ms": k5_run["bound_ms"],
         "bound_by": k5_run["bound_by"],
         "library_ms": k5_run["library_ms"],
+    })
+    line.append({
+        "name": "flash_attention_k5_f32",  # f32: flash_attention_f32_kernel, the slice's shape
+        "route": "cuda",
+        "source": "wav2vec2_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "wav2vec2_tpu/ops/flash_attention.py:124",
+        "launches": launches["k5_fma"],
+        "max_abs_err": max_err["k5_f32"],
+        "ms": k5_run["f32"]["ms"],
+        "plain_ms": k5_run["f32"]["plain_ms"],
+        "bound_ms": k5_run["f32"]["bound_ms"],
+        "bound_by": k5_run["f32"]["bound_by"],
+        "library_ms": k5_run["f32"]["library_ms"],
     })
     line.append({
         "name": "flash_attention_k5_online",  # K5 at an online window: B=1, T_pad 256

@@ -13,7 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import blocked_cases, check_flash, check_kernel, flash_cases, kernel_cases
+from chip_smoke import (
+    F32_ODD_HEAD_DIMS,
+    blocked_cases,
+    check_flash,
+    check_flash_head_dims,
+    check_kernel,
+    flash_cases,
+    kernel_cases,
+)
 from wav2vec2_tpu_torch.ops import flash_attention, viterbi_cuda, viterbi_ref
 
 
@@ -99,6 +107,20 @@ def test_k5_kernel_matches_plain_on_the_card():
     check_flash(device, cases)
     torch.cuda.synchronize()
     assert flash_attention.launches["k5"] == before + len(cases)
+
+
+@pytest.mark.cuda
+def test_k5_f32_serves_head_dims_off_its_widths_on_the_card():
+    """The f32 kernel at head dims that are no width of 16, 32, 64, 80, 96,
+    128 (the next width runs them, TMA filling the columns past hd with
+    zeros) or no multiple of 4 (the wrapper pads them): within 2e-5 of the
+    plain version, rel and plain, each in one launch of the f32 kernel."""
+    device = _card()
+    before = dict(flash_attention.kernel_launches)
+    check_flash_head_dims(device)
+    torch.cuda.synchronize()
+    n = 2 * len(F32_ODD_HEAD_DIMS)
+    assert flash_attention.kernel_launches == {**before, "fma": before["fma"] + n}
 
 
 @pytest.mark.cuda

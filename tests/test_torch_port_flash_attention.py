@@ -198,10 +198,14 @@ def test_shared_memory_within_one_block(hd, dtype, rel):
     (128, torch.bfloat16, True, (256 + 2 * (64 + 160)) * 256 + 8 * 2560 + 256 + 40 + 1024),
     (80, torch.bfloat16, False, (128 + 2 * 256) * 160 + 1024 + 40 + 1024),
     (128, torch.bfloat16, False, (128 + 2 * 256) * 256 + 1024 + 40 + 1024),
-    # f32, FMAs: f32 rows of stride width + 1, the score tile, row vectors
-    (64, torch.float32, True, 117760),
-    (128, torch.float32, True, 215808),
-    (16, torch.float32, False, 31232),
+    # f32, FMAs fed by TMA: f32 rows of the width's columns, nothing past
+    # it (q[, q_pos], two stages of K, V[, the R ring]); two BK-key f32
+    # mask tiles, 5 mbarriers, 1 KiB of base alignment. 128 query rows, 64
+    # keys, a ring of 256 rows; with rel at hd 128 64 rows, 32 keys, a ring
+    # of 128
+    (64, torch.float32, True, (256 + 2 * 128 + 256) * 256 + 512 + 40 + 1024),
+    (128, torch.float32, True, (128 + 2 * 64 + 128) * 512 + 256 + 40 + 1024),
+    (16, torch.float32, False, (128 + 2 * 128) * 64 + 512 + 40 + 1024),
 ])
 def test_shared_memory_sizes_are_pinned(hd, dtype, rel, want):
     assert fa.smem_bytes(hd, dtype, rel) == want <= fa.MAX_SMEM_BYTES
@@ -220,14 +224,48 @@ def test_served_head_dims_fit(hd, rel, dtype):
 
 @pytest.mark.parametrize("rel", [True, False])
 def test_head_dim_80_is_not_the_128_template(rel):
-    """hd 80 is two column chunks, 64 + 16: its bf16 tiles hold 80 columns
-    a row, not the 128 of a zero-filled template."""
+    """hd 80 is two bf16 column chunks, 64 + 16, and three f32 ones, 32 +
+    32 + 16: the tiles of both kernels hold 80 columns a row, not the 128
+    of a zero-filled template."""
     bk, stages = fa.wgmma_key_tile(80, rel), fa.WGMMA_STAGES
     rows = fa.WGMMA_BQ * (2 if rel else 1) + stages * (2 * bk + (fa.WGMMA_BQ + bk if rel else 0))
     fixed = fa.smem_bytes(80, torch.bfloat16, rel) - rows * 80 * 2
     assert fixed == (8 * 16 * (bk + 8) * 4 if rel else 0) + stages * (bk * 4 + 16) + 8 + 1024
     if not rel:  # one key tile for both: the 128-wide tiles are larger
         assert fa.smem_bytes(80, torch.bfloat16, rel) < fa.smem_bytes(128, torch.bfloat16, rel)
+    bq, bk, ring = fa.f32_tiles(80, rel)
+    rows = bq * (2 if rel else 1) + 2 * 2 * bk + (ring if rel else 0)
+    fixed = fa.smem_bytes(80, torch.float32, rel) - rows * 80 * 4
+    assert fixed == 2 * (bk * 4 + 16) + 8 + 1024
+    if not rel:
+        assert fa.smem_bytes(80, torch.float32, rel) < fa.smem_bytes(128, torch.float32, rel)
+
+
+@pytest.mark.parametrize("rel", [True, False])
+def test_f32_serves_every_head_dim_to_128(rel):
+    """The f32 kernel takes head dims 1..128: each runs the first width of
+    16, 32, 64, 80, 96, 128 that holds it (so every column chunk of 32
+    starts below hd), within one block's shared memory."""
+    for hd in range(1, fa.HEAD_DIM_CAP + 1):
+        width = fa._template_width(hd)
+        assert width == min(w for w in fa.F32_WIDTHS if w >= hd)
+        assert 32 * ((width - 1) // 32) < hd  # the last chunk starts below hd
+        assert fa.fits(hd, torch.float32, rel)
+        fa.check_fits(hd, torch.float32, rel)
+
+
+@pytest.mark.parametrize("hd,rel,want", [
+    (64, True, (128, 64, 256)), (64, False, (128, 64, 256)), (80, True, (128, 32, 256)),
+    (80, False, (128, 64, 256)), (96, True, (64, 32, 128)), (128, True, (64, 32, 128)),
+    (128, False, (128, 64, 256)), (16, True, (128, 64, 256)),
+])
+def test_f32_tiles_are_pinned(hd, rel, want):
+    """The f32 kernel's (query rows, keys, R ring rows): 4 x 8 scores a
+    thread at 128 x 64 wherever they fit; the ring holds a tile's BQ + BK −
+    1 window rows and the next tile's BK."""
+    bq, bk, ring = fa.f32_tiles(hd, rel)
+    assert (bq, bk, ring) == want
+    assert ring >= bq + 2 * bk and ring % bk == 0 and fa.pad_len(1) % bq == 0
 
 
 def test_check_tma_aligned_raises_on_a_misaligned_base():
@@ -245,8 +283,8 @@ def test_check_tma_aligned_raises_on_a_misaligned_base():
     (torch.bfloat16, "wgmma"), (torch.float32, "fma"), (torch.float16, None),
 ])
 def test_dtype_picks_the_kernel(dtype, want):
-    """bf16 launches the wgmma kernel, f32 the exact FMA kernel (the TPU's
-    HIGHEST path); no other dtype has a kernel."""
+    """bf16 launches the wgmma kernel, f32 the exact FMA kernel fed by TMA
+    (the TPU's HIGHEST path); no other dtype has a kernel."""
     assert fa.kernel_for(dtype) == want
     assert fa.fits(64, dtype, True) == (want is not None)
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Every source under `csrc/` (the Viterbi kernels K1–K4 and the fused
-attention kernel K5) is compiled at first use with one `nvcc` call for
-`sm_90a` into one shared library with a plain C interface under
+attention kernel K5) is compiled at first use for `sm_90a`, one `nvcc`
+process a source, all started together, into objects that one more
+`nvcc` links into one shared library with a plain C interface under
 `build/torch_kernels/` at the repository root (rebuilt when a source is
 newer), and loaded with `ctypes`. Each wrapper module (`viterbi_cuda`,
 `flash_attention`) declares the argument types of its own C functions on
@@ -30,6 +31,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIBRARY = BUILD_DIR / "libkernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the same, for one source's object
+COMPILE_FLAGS = [flag for flag in NVCC_FLAGS if flag != "-shared"] + ["-c"]
 MAX_SMEM_BYTES = 232_448  # per block on H100, opt-in dynamic shared memory
 _lock = threading.RLock()
 _library: ctypes.CDLL | None = None
@@ -56,17 +59,30 @@ def build(force: bool = False) -> dict:
             return {"library": str(LIBRARY), "seconds": 0.0, "compiler_output": ""}
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = LIBRARY.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+        nvcc = _nvcc()
+        objects = [BUILD_DIR / f"{src.stem}.{os.getpid()}.o" for src in SOURCES]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objects)]
+        outputs = [proc.communicate()[0] for proc in procs]
+        link = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objects)]
+        failed = [(src, out) for src, proc, out in zip(SOURCES, procs, outputs)
+                  if proc.returncode != 0]
+        res = None if failed else subprocess.run(link, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(f"{src.name}:\n{out}"
+                                                          for src, out in failed))
         if res.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}{res.stderr}"
+                f"nvcc failed ({res.returncode}): {' '.join(link)}\n{res.stdout}{res.stderr}"
             )
         os.replace(tmp, LIBRARY)
         return {"library": str(LIBRARY), "seconds": seconds,
-                "compiler_output": res.stdout + res.stderr}
+                "compiler_output": "".join(outputs) + res.stdout + res.stderr}
 
 
 def library() -> ctypes.CDLL:

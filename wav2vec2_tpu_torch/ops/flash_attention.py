@@ -8,13 +8,26 @@ tensors it runs the plain version `ops.flash_attention_ref.attention`.
 There is no fallback from the kernel to the plain version. K5 has no
 backward, so `flash_attention` raises where autograd would record it (grad
 mode on and an input requiring grad), on either device. The kernel
-follows the dtype (`kernel_for`): bf16 runs on the tensor cores
-(`flash_attention_wgmma_kernel`: wgmma fed by a TMA ring, bf16 operands,
-f32 accumulation, as the TPU's bf16 path; head dims 16, 32, 64, 80 and
-128, none zero-filled), f32 as exact FMAs on the CUDA cores
-(`flash_attention_fma_kernel`: the TPU's Precision.HIGHEST path of the
-parity forward; head dims 1..128). `launches["k5"]` counts the launches
-of both.
+follows the dtype (`kernel_for`); both are fed by a TMA ring (one producer
+thread, full and empty mbarriers, consumers at 240 registers by
+`setmaxnreg`) and cut a row into column chunks, so no head dim that a
+preset uses is zero-filled:
+- bf16 runs on the tensor cores (`flash_attention_wgmma_kernel`: wgmma,
+  bf16 operands, f32 accumulation, as the TPU's bf16 path; head dims 16,
+  32, 64, 80 and 128);
+- f32 runs as exact FMAs on the CUDA cores (`flash_attention_f32_kernel`,
+  launched as "fma": the TPU's Precision.HIGHEST path of the f32 forwards,
+  which the single-utterance runtime, long-form, online and the CLI use
+  by default). Its bound is the 6·T_pad²·hd operations at 67 TFLOP/s. A
+  consumer thread owns 4 x 8 scores (rows and keys 8 apart), reads its
+  operands 16 bytes along d a load and keeps scores, p and O in registers
+  (softmax and P·V across the eight lanes of a row by shuffles); the R
+  window is a ring that takes only BK new rows a key tile. Head dims
+  1..128 by the widths 16, 32, 64, 80, 96 and 128 (`f32_tiles`): hd 64 is
+  32 + 32 columns, 80 is 32 + 32 + 16; another head dim runs the next
+  width with TMA's zeros past hd, and one that is not a multiple of 4 is
+  padded to one here (TMA's row stride is a multiple of 16 bytes).
+`launches["k5"]` counts the launches of both, `kernel_launches` each.
 
 The relative table is `rel_table_rev`: R_rev[h, m] = (pe_{T_pad−m} ·
 W_pos)[h·hd : (h+1)·hd] for m ∈ [0, 2·T_pad), over the Transformer-XL
@@ -58,9 +71,9 @@ from .cuda_build import MAX_SMEM_BYTES, library
 BLOCK_Q = 256  # T is padded to a multiple of this, as in the JAX package
 HEAD_DIM_CAP = 128
 FORCE_ENV = "WAV2VEC2_FLASH_FORCE"
-# the FMA kernel's tiles (csrc/flash_attention.cu): 64 query rows, 64 keys
-KERNEL_BQ = 64
-KERNEL_BK = 64
+# the f32 kernel's widths (csrc/flash_attention.cu, f32_k5): a head dim runs
+# the first that holds it
+F32_WIDTHS = (16, 32, 64, 80, 96, HEAD_DIM_CAP)
 # the wgmma kernel's: 128 query rows (two consumer warpgroups of 64), a
 # two-stage ring of key tiles, the head dims it serves
 WGMMA_BQ = 128
@@ -68,9 +81,12 @@ WGMMA_STAGES = 2
 WGMMA_HEAD_DIMS = (16, 32, 64, 80, 128)
 TMA_ALIGN = 16  # bytes: TMA's and the bulk copy's base alignment
 _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
-# dtype -> kernel: "wgmma" on the tensor cores, "fma" on the CUDA cores
+# dtype -> kernel: "wgmma" on the tensor cores, "fma" (exact f32 FMAs) on the
+# CUDA cores
 _KERNELS = {torch.bfloat16: "wgmma", torch.float32: "fma"}
 launches = {"k5": 0}
+# the same launches by kernel (`kernel_for`)
+kernel_launches = {kernel: 0 for kernel in _KERNELS.values()}
 
 
 def pad_len(t: int) -> int:
@@ -115,11 +131,22 @@ def flash_forced() -> bool:
 
 
 def _template_width(head_dim: int) -> int:
-    """The FMA kernel's template that serves `head_dim` (0 if none does)."""
-    for width in (16, 32, 64, HEAD_DIM_CAP):
-        if 1 <= head_dim <= width:
-            return width
-    return 0
+    """The f32 kernel's width that serves `head_dim` (0 if none does)."""
+    return next((w for w in F32_WIDTHS if 1 <= head_dim <= w), 0)
+
+
+def f32_tiles(head_dim: int, rel: bool) -> tuple[int, int, int]:
+    """(query rows a block, keys a tile, rows of the R ring) of the f32
+    kernel at `head_dim`'s width: a consumer thread owns 4 x 8 scores of
+    128 x 64; with rel 4 x 4 (64 keys) past width 64 and 2 x 4 (64 rows)
+    past width 80, where q, q_pos, two stages of K and V and the ring would
+    not fit. The ring holds a tile's BQ + BK − 1 window rows and one tile
+    ahead, rounded up to a power of 2."""
+    width = _template_width(head_dim)
+    tr = 2 if rel and width > 80 else 4
+    tk = 4 if rel and width > 64 else 8
+    bq, bk = 32 * tr, 8 * tk
+    return bq, bk, 1 << (bq + 2 * bk - 1).bit_length()
 
 
 def wgmma_key_tile(head_dim: int, rel: bool) -> int:
@@ -134,7 +161,8 @@ def wgmma_key_tile(head_dim: int, rel: bool) -> int:
 
 def kernel_for(dtype: torch.dtype) -> str | None:
     """The kernel a CUDA tensor of `dtype` launches: "wgmma" (bf16, tensor
-    cores), "fma" (f32, CUDA cores), or None (no kernel takes the dtype)."""
+    cores), "fma" (f32, exact FMAs on the CUDA cores), or None (no kernel
+    takes the dtype)."""
     return _KERNELS.get(dtype)
 
 
@@ -160,11 +188,13 @@ def smem_bytes(head_dim: int, dtype: torch.dtype, rel: bool) -> int:
     width = _template_width(head_dim)
     if kernel != "fma" or not width:
         return 0
-    # f32 rows of stride width + 1: q, k, v[, q_pos, a 127-row R window],
-    # then the [64, 68] f32 score tile and three row vectors
-    rows = KERNEL_BQ + 2 * KERNEL_BK + (2 * KERNEL_BQ + KERNEL_BK - 1 if rel else 0)
-    tiles = -(-rows * (width + 1) * 4 // 16) * 16
-    return tiles + KERNEL_BQ * (KERNEL_BK + 4) * 4 + 3 * KERNEL_BQ * 4
+    # f32 rows of `width` columns (chunks of 32 and 16, no padding): q[,
+    # q_pos], two stages of K and V[, the R ring]; the stages' f32 key
+    # masks; 5 mbarriers; 1 KiB to align the base for the 128-byte swizzle
+    bq, bk, ring = f32_tiles(head_dim, rel)
+    row = 4 * width
+    tiles = (bq * (2 if rel else 1) + 2 * 2 * bk + (ring if rel else 0)) * row
+    return tiles + 2 * bk * 4 + 5 * 8 + 1024
 
 
 def library_smem_bytes(head_dim: int, dtype: torch.dtype, rel: bool) -> int:
@@ -194,8 +224,9 @@ def check_fits(head_dim: int, dtype: torch.dtype, rel: bool) -> None:
 
 def check_tma_aligned(**tensors: torch.Tensor | None) -> None:
     """Raise ValueError unless every tensor given starts on TMA's 16-byte
-    alignment (the wgmma kernel's maps and mask copy; its row strides, hd·2
-    bytes at a served head dim, always are)."""
+    alignment (both kernels' maps and mask copy; their row strides, hd·2
+    bytes at a bf16 head dim, hd·4 at an f32 one padded to a multiple of 4,
+    always are)."""
     for name, x in tensors.items():
         if x is not None and x.data_ptr() % TMA_ALIGN:
             raise ValueError(f"{name} starts at {x.data_ptr():#x}, not on the "
@@ -240,9 +271,15 @@ def _launch(q, k, v, mask, q_pos, rel_r, scale: float) -> torch.Tensor:
                          f"on {q.device}")
     check_fits(hd, q.dtype, rel)
     kernel = kernel_for(q.dtype)
+    if kernel == "fma" and hd % 4:
+        # TMA's rows are a multiple of 16 bytes: zero columns up to one
+        pad = (0, -hd % 4)
+        out = _launch(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), mask,
+                      None if q_pos is None else F.pad(q_pos, pad),
+                      None if rel_r is None else F.pad(rel_r, pad), scale)
+        return out[..., :hd].contiguous()
     out = torch.empty_like(q)
-    if kernel == "wgmma":
-        check_tma_aligned(q=q, k=k, v=v, q_pos=q_pos, rel_r=rel_r, mask=mask, out=out)
+    check_tma_aligned(q=q, k=k, v=v, q_pos=q_pos, rel_r=rel_r, mask=mask, out=out)
     lib = _library()
 
     def ptr(x):
@@ -257,6 +294,7 @@ def _launch(q, k, v, mask, q_pos, rel_r, scale: float) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"flash_attention_{kernel} launch failed: cudaError {err}")
     launches["k5"] += 1
+    kernel_launches[kernel] += 1
     return out
 
 
