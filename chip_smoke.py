@@ -12,7 +12,13 @@ must hold wgmma (HGMMA) and TMA loads (UTMALDG) and none mma.sync (HMMA);
 each of the f32 kernel TMA loads and FFMA, and no tensor-core (HGMMA,
 HMMA) or TF32 instruction), holds each kernel against its plain PyTorch
 version (the Viterbi kernels also against the numpy oracle, K4 against K1
-at hour scale; the f32 K5 also at head dims off its widths), times K5 at
+at hour scale; the f32 K5 also at head dims off its widths; K4 past 16 384
+states on a thread-block cluster: (w1) against its plain version at S_pad
+20 480 and 40 064 (clusters of 2 and 3, ties, an all -inf row, tokens
+repeating across the slice boundaries) and forced onto clusters of 2-8
+blocks on the blocked cases, (w2) at hour scale and the rate of real
+speech (S 99 000 at V = 32, 86 400 at V = 392) the least cluster against
+one block more and 8, the paths valid), times K5 at
 the shapes the main paths give it (bf16 at the (m2) mesh's local tiles;
 f32 at the conformer's, the forced plain forwards' at head dims 64 and
 80, the online window, long-form's 30 s chunk and the mesh tiles, each
@@ -23,9 +29,10 @@ random weights from a numpy seed:
 - wav2vec2-base at full width: `BatchAligner.submit_padded_batch` on
   32 × 10 s with the gates of `bench.py` (K1), and on a long bucket that
   selects K2; `ForcedAlignerBuilder` on 3 requests (K1); `align_longform`
-  on 10 min of audio with a 1 200-word transcript (K4), with gates
-  (a)–(d), and on 3 min with a phoneme-size vocabulary and a short
-  transcript (K3);
+  on 10 min of audio with a 1 200-word transcript (K4 on one block), with
+  gates (a)–(d), (w3) on 20 min with 2 400 words (23 999 states: K4 on a
+  cluster of 2, also timed on 3 and 8), with the same gates, and on 3 min
+  with a phoneme-size vocabulary and a short transcript (K3);
 - wav2vec2-conformer-rel-pos-large at full width and depth:
   `BatchAligner.submit_padded_batch` on 32 × 10 s with the gates of
   `bench.py` (K5 once per layer and forward, K1), the f32 forward through
@@ -116,8 +123,10 @@ computing the same function; the forwards, the long-form path and the
 batch paths with their drain on CUDA events around whole calls. Every failure raises and the exit code is non-zero; without a CUDA
 device it exits non-zero before running anything. The line before the
 last is the `kernels` JSON object (K5's bf16 and f32 kernels in rows of
-their own, with their launches on the paths); the last line of standard
-output is one JSON object naming the device.
+their own, with their launches on the paths; K4 on a cluster in a row of
+its own at (w3)'s shape, and K4's row lists every cluster size it ran
+with); the last line of standard output is one JSON object naming the
+device.
 """
 
 from __future__ import annotations
@@ -291,12 +300,12 @@ def oracle_rows(t_lens, s_lens, max_cells=300_000, max_rows=3):
     return rows or [int(order[0])]
 
 
-def check_kernel(device, cases, tier="k1", modes=None):
-    """Kernel `tier` (forced) vs its plain PyTorch version (all rows, all
-    frames) and vs the numpy oracle (a few rows), bit-identical. For K1,
-    the mode each case ran in (from `k1_launches`) goes into `modes`
-    (case name -> mode) where given. Returns the max abs path difference
-    (0)."""
+def check_kernel(device, cases, tier="k1", modes=None, cluster=0, oracle=True):
+    """Kernel `tier` (forced; K4 on `cluster` blocks, 0: its rule) vs its
+    plain PyTorch version (all rows, all frames) and, with `oracle`, vs the
+    numpy oracle (a few rows), bit-identical. For K1, the mode each case
+    ran in (from `k1_launches`) goes into `modes` (case name -> mode) where
+    given. Returns the max abs path difference (0)."""
     import torch
 
     from wav2vec2_tpu_torch.ops import viterbi_cuda, viterbi_ref
@@ -305,7 +314,7 @@ def check_kernel(device, cases, tier="k1", modes=None):
     for name, lp, tok, t_lens, s_lens in cases:
         args = [torch.from_numpy(a).to(device) for a in (lp, tok, t_lens, s_lens)]
         before = dict(viterbi_cuda.k1_launches)
-        got = viterbi_cuda.viterbi_batch(*args, tier=tier).cpu().numpy()
+        got = viterbi_cuda.viterbi_batch(*args, tier=tier, cluster=cluster).cpu().numpy()
         ran = [m for m, n in viterbi_cuda.k1_launches.items() if n != before[m]]
         mode = f" in the {ran[0]} mode" if ran else ""
         if modes is not None and ran:
@@ -317,6 +326,8 @@ def check_kernel(device, cases, tier="k1", modes=None):
             bad = np.argwhere(got != plain)[0]
             raise AssertionError(f"{tier} {name}: kernel path differs from the plain "
                                  f"version at (row, frame) {tuple(bad)}")
+        if not oracle:
+            continue
         rows = oracle_rows(t_lens, s_lens)
         for j in rows:
             t_i, s_i = int(t_lens[j]), int(s_lens[j])
@@ -420,26 +431,32 @@ def interleaved_ms(kernel, plain, kernel_launches, plain_repeats):
     return statistics.median([k1, k2]), statistics.median([p1, p2])
 
 
+K4_CLUSTERS_RUN: set[int] = set()  # every cluster size K4 launched with in this process
+
+
 def reset_launches():
     from wav2vec2_tpu_torch.ops import flash_attention, viterbi_cuda
 
+    K4_CLUSTERS_RUN.update(n for n, c in viterbi_cuda.k4_clusters.items() if c)
     for counts in (viterbi_cuda.launches, viterbi_cuda.k1_launches, flash_attention.launches,
-                   flash_attention.kernel_launches):
+                   flash_attention.kernel_launches, viterbi_cuda.k4_clusters):
         for name in counts:
             counts[name] = 0
 
 
 def read_launches():
     """Launches per kernel since `reset_launches`, K1's per mode
-    ("k1_resident", "k1_device") and K5's per kernel ("k5_wgmma": bf16,
-    "k5_fma": f32)."""
+    ("k1_resident", "k1_device"), K4's per cluster size ("k4_cluster_n")
+    and K5's per kernel ("k5_wgmma": bf16, "k5_fma": f32)."""
     import torch
 
     from wav2vec2_tpu_torch.ops import flash_attention, viterbi_cuda
 
     torch.cuda.synchronize()
+    K4_CLUSTERS_RUN.update(n for n, c in viterbi_cuda.k4_clusters.items() if c)
     return {**viterbi_cuda.launches, **flash_attention.launches,
             **{f"k1_{mode}": n for mode, n in viterbi_cuda.k1_launches.items()},
+            **{f"k4_cluster_{n}": c for n, c in viterbi_cuda.k4_clusters.items()},
             **{f"k5_{kernel}": n for kernel, n in flash_attention.kernel_launches.items()}}
 
 
@@ -658,7 +675,9 @@ def run_longform(device, cfg, params, vocab, minutes, card):
     same stitched log-probs, on the card; (b) the device-gather stitch
     equals `stitch_log_probs` bit for bit; (c) grouping from device evidence
     vs host grouping from host evidence: all words within one frame, >= 99%
-    exact; (d) every word in order, boundaries monotone."""
+    exact; (d) every word in order, boundaries monotone. Past 16 384
+    states (20 min: (w3)) K4 runs on a cluster, and the DP is also timed
+    on one block more and on 8 blocks (`cluster=`), each path equal."""
     import torch
 
     from wav2vec2_tpu_torch import align_longform
@@ -733,15 +752,28 @@ def run_longform(device, cfg, params, vocab, minutes, card):
           f"bit for bit; (c) grouping {exact}/{len(deltas)} exact, {within}/{len(deltas)} "
           f"within one frame; (d) {len(out.words)} words in order, monotone")
     bp_bytes = int(np.prod(viterbi_cuda.bp_scratch_shape(tier, 1, t_len, tokens.shape[0], v)))
-    r, threads = viterbi_cuda.library_strip(tokens.shape[0])
-    print(f"{tier} at the {minutes:g} min shape: {r}-state strips on {threads} threads; "
-          f"backpointer scratch {bp_bytes} B per launch (2 bits a cell, [1, {t_len}, "
-          f"{bp_bytes // t_len}] uint8)")
+    n, r, threads, slices = viterbi_cuda.library_cluster(tokens.shape[0])
+    print(f"{tier} at the {minutes:g} min shape: a cluster of {n} ({r}-state strips on "
+          f"{threads} threads a block, slices {slices}); backpointer scratch {bp_bytes} B per "
+          f"launch (2 bits a cell, [1, {t_len}, {bp_bytes // t_len}] uint8)")
+    cluster_ms = {}
+    if n > 1:
+        fns = {c: (lambda c=c: viterbi_cuda.viterbi_batch(*args, cluster=c))
+               for c in sorted({n, n + 1, viterbi_cuda.MAX_CLUSTER})}
+        for c, fn in fns.items():
+            if not torch.equal(fn()[0].cpu(), torch.from_numpy(path)):
+                raise AssertionError(f"the {minutes:g} min DP on a cluster of {c} differs "
+                                     f"from the path on {n}")
+        cluster_ms = turns_ms(fns, 3)
+        print(f"time: the {minutes:g} min DP on clusters of "
+              + ", ".join(f"{c} blocks {t_ms:.3f} ms" for c, t_ms in cluster_ms.items())
+              + f", each path == the path on {n} (device time, medians; in turns) {card}")
     print(f"time: long-form {minutes:g} min {minutes * 60 / wall:.1f}x realtime "
-          f"({wall:.3f} s wall, first call), forward {fwd_ms:.3f} ms, DP ({tier}) "
-          f"{k_ms:.3f} ms (device time, median of 5), plain DP {p_ms:.1f} ms, peak device "
-          f"memory {peak_gb:.2f} GB {card}")
-    return counts, dict(tier=tier, ms=k_ms, plain_ms=p_ms, err=err,
+          f"({wall:.3f} s wall, first call), forward {fwd_ms:.3f} ms, DP ({tier}, a cluster "
+          f"of {n}) {k_ms:.3f} ms (device time, median of 5), plain DP {p_ms:.1f} ms, peak "
+          f"device memory {peak_gb:.2f} GB, launches k4 {counts['k4']} {card}")
+    return counts, dict(tier=tier, ms=k_ms, plain_ms=p_ms, err=err, cluster=n,
+                        cluster_ms=cluster_ms, wall_s=wall, fwd_ms=fwd_ms, peak_gb=peak_gb,
                         shape=(1, t_len, v, tokens.shape[0], [t_len], [s_len]))
 
 
@@ -1348,6 +1380,144 @@ def tier_crossover(device, card, hour_rows):
         k2 = f"gather + K2 {k2_ms:.3f} ms, " if k2_ms is not None else "K2 does not fit, "
         print(f"tier crossover: T={t} S_pad={s_pad} V={v}: K1 ({mode} mode) {k1_ms:.3f} ms, "
               f"{k2}K4 {k4_ms:.3f} ms, K4/K1 {k4_ms / k1_ms:.3f} {card}")
+
+
+def repeat_across_slices(tok, s_pad):
+    """Make the tokens repeat across each slice boundary a of K4's cluster
+    at `s_pad` (tok[a] == tok[a-2], tok[a+1] == tok[a-1]): the s-2 step is
+    forbidden on both sides of every handoff."""
+    from wav2vec2_tpu_torch.ops import viterbi_cuda
+
+    for a, _ in viterbi_cuda.cluster_slices(s_pad)[1:]:
+        tok[..., a] = tok[..., a - 2]
+        tok[..., a + 1] = tok[..., a - 1]
+    return tok
+
+
+def cluster_cases(rng):
+    """(w1)'s cases past one block's 16 384 states, tokens repeating across
+    every slice boundary: a ragged batch of 3 at T_pad 12 000, S_pad 20 480
+    (a cluster of 2: a row of ties, log-probs rounded to 0.5; an all -inf
+    row; a row whose s_len stops past the boundary) and one row at T_pad
+    20 000, S_pad 40 064 (a cluster of 3)."""
+    b, t, s_pad = 3, 12_000, 20_480
+    lp = random_log_probs(rng, b, t, 32)
+    lp[0] = np.round(lp[0] * 2) / 2
+    lp[1] = -np.inf
+    tok = repeat_across_slices(rng.integers(0, 32, size=(b, s_pad)).astype(np.int32), s_pad)
+    ragged = ("ragged B=3 T_pad=12000 S_pad=20480 V=32 (ties, all -inf, s_len 16 500)", lp, tok,
+              np.array([12_000, 11_000, 10_500], np.int32),
+              np.array([20_480, 19_000, 16_500], np.int32))
+    t, s_pad = 20_000, 40_064
+    one = ("one row T_pad=20000 S_pad=40064 V=32", random_log_probs(rng, 1, t, 32),
+           repeat_across_slices(rng.integers(0, 32, size=(1, s_pad)).astype(np.int32), s_pad),
+           np.array([t], np.int32), np.array([40_000], np.int32))
+    return [ragged, one]
+
+
+def check_cluster_w1(device, card):
+    """(w1) K4 on a cluster against its plain version on the card, bit for
+    bit: `cluster_cases` at the rule's cluster, each timed beside its
+    bound and the plain version; then every cluster of 2–8 blocks that
+    `cluster_shape` admits forced on the blocked K4 cases of
+    `blocked_cases` (edge cases, odd widths, partial last strips). Returns
+    (max abs path difference, rows for the report)."""
+    import torch
+
+    from wav2vec2_tpu_torch.ops import viterbi_cuda, viterbi_ref
+
+    worst, rows = 0, []
+    for name, lp, tok, t_lens, s_lens in cluster_cases(np.random.default_rng(16)):
+        b, t, v = lp.shape
+        s_pad = tok.shape[1]
+        args = [torch.from_numpy(a).to(device) for a in (lp, tok, t_lens, s_lens)]
+        kernel = lambda: viterbi_cuda.viterbi_batch(*args, tier="k4")  # noqa: E731
+        plain = lambda: viterbi_ref.viterbi_batch(*args)  # noqa: E731
+        got, want = kernel(), plain()
+        err = int((got.long() - want.long()).abs().max())
+        worst = max(worst, err)
+        if err:
+            bad = tuple(int(i) for i in (got != want).nonzero()[0])
+            raise AssertionError(f"(w1) {name}: K4's path differs from the plain version "
+                                 f"at (row, frame) {bad}")
+        k_ms, p_ms = interleaved_ms(kernel, plain, 3, 1)
+        bound_ms, bound_by = dp_bound("k4", b, t, v, s_pad, t_lens, s_lens)
+        n, r, threads = viterbi_cuda.cluster_shape(s_pad)
+        rows.append(dict(name=name, n=n, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, shape=(b, t, v, s_pad, t_lens, s_lens)))
+        print(f"(w1) {name}: K4 on a cluster of {n} ({r}-state strips, {threads} threads a "
+              f"block, slices {viterbi_cuda.cluster_slices(s_pad)}) == plain version, every "
+              f"row and frame; K4 {k_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}, plain "
+              f"{p_ms:.1f} ms (device time, medians; plain, kernel, kernel, plain) {card}")
+        del args, got, want
+    forced = 0
+    for case in blocked_cases(np.random.default_rng(8))["k4"]:
+        for n in range(2, viterbi_cuda.MAX_CLUSTER + 1):
+            if viterbi_cuda.cluster_shape(case[2].shape[1], n)[0]:
+                worst = max(worst, check_kernel(device, [case], "k4", cluster=n, oracle=False))
+                forced += 1
+    print(f"(w1) K4 forced onto clusters of 2-8 blocks: {forced} launches on the blocked K4 "
+          f"cases, each path == the plain version's")
+    return worst, rows
+
+
+def path_is_valid(path, tok, t_len, s_len):
+    """The path starts in state 0 or 1, ends in s_len-2 or s_len-1, moves by
+    0, 1 or 2 a frame, and takes 2 only where tokens[s] != tokens[s-2]."""
+    path = path[:t_len].astype(np.int64)
+    step = np.diff(path)
+    two = path[1:][step == 2]
+    return bool(path[0] in (0, 1) and path[-1] in (s_len - 2, s_len - 1)
+                and ((step >= 0) & (step <= 2)).all() and (tok[two] != tok[two - 2]).all())
+
+
+def cluster_hour_w2(device, card):
+    """(w2) Hour scale at the rate of real speech, T = 180 000: V = 32 at
+    S = 99 000 (150 words a minute, 5.5 tokens a word) and V = 392 at
+    S = 86 400 (12 phones a second), random log-probs. The plain version
+    would take minutes, so the path of the least cluster (7, 6) is held to
+    the paths of one block more and of 8 blocks (`cluster=`), bit for bit,
+    and checked valid (`path_is_valid`); the three timed in turns."""
+    import torch
+
+    from wav2vec2_tpu_torch.ops import viterbi_cuda
+
+    rng = np.random.default_rng(17)
+    rows = []
+    for v, s_len in ((32, 99_000), (PHONEME_VOCAB, 86_400)):
+        s_pad = -(-s_len // 128) * 128
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=device).manual_seed(v + 1)
+        lp = torch.log_softmax(
+            torch.randn((1, HOUR_FRAMES, v), generator=gen, device=device) * 3.0, dim=-1)
+        tok_np = rng.integers(0, v, size=(1, s_pad)).astype(np.int32)
+        tok = torch.from_numpy(tok_np).to(device)
+        lens = [torch.tensor([x], dtype=torch.int32, device=device) for x in (HOUR_FRAMES, s_len)]
+        least = viterbi_cuda.cluster_size(s_pad)
+        sizes = sorted({least, least + 1, viterbi_cuda.MAX_CLUSTER})
+        fns = {n: (lambda n=n: viterbi_cuda.viterbi_batch(lp, tok, *lens, tier="k4", cluster=n))
+               for n in sizes}
+        want = fns[least]()
+        for n in sizes[1:]:
+            if not torch.equal(fns[n](), want):
+                raise AssertionError(f"(w2) V={v}: the path on a cluster of {n} differs from "
+                                     f"the path on {least}")
+        path = want[0].cpu().numpy()
+        if not path_is_valid(path, tok_np[0], HOUR_FRAMES, s_len):
+            raise AssertionError(f"(w2) V={v}: the path is not a valid alignment")
+        ms = turns_ms(fns, 1)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        bp_bytes = int(np.prod(viterbi_cuda.bp_scratch_shape("k4", 1, HOUR_FRAMES, s_pad, v)))
+        bound_ms, bound_by = dp_bound("k4", 1, HOUR_FRAMES, v, s_pad, [HOUR_FRAMES], [s_len])
+        print(f"(w2) hour scale T={HOUR_FRAMES} V={v} S={s_len} S_pad={s_pad}: paths on clusters "
+              f"of {sizes} equal bit for bit and valid; K4 "
+              + ", ".join(f"{n} blocks {t_ms:.2f} ms" for n, t_ms in ms.items())
+              + f"; bound {bound_ms:.3f} ms by {bound_by}; backpointer scratch {bp_bytes} B; "
+              f"peak device memory {peak_gb:.2f} GB (device time, medians; in turns) {card}")
+        rows.append(dict(v=v, s_pad=s_pad, ms=ms, bound_ms=bound_ms, bp_bytes=bp_bytes))
+        del lp, want, fns
+    return rows
 
 
 def time_k1(device, card, cases, k_ms, p_ms):
@@ -4048,13 +4218,27 @@ def main() -> int:
 
     for shape in ((499, 256, 32), (3047, 128, 32), (37, 61, 397), (HOUR_FRAMES, 12_672, 392),
                   (2400, 4100, 32), (512, 4096, 32), (1000, 16_388, 32), (5000, 3700, 8000),
-                  (1499, 768, 32), (601, 61, 29), (499, 256, 392), (2400, 256, 32), (64, 128, 8)):
+                  (1499, 768, 32), (601, 61, 29), (499, 256, 392), (2400, 256, 32), (64, 128, 8),
+                  (12_000, 20_480, 32), (20_000, 40_064, 32), (60_000, 24_064, 32),
+                  (HOUR_FRAMES, 99_072, 32), (HOUR_FRAMES, 86_400, 392), (100, 131_072, 32)):
         for tier in viterbi_cuda.TIERS:
             if viterbi_cuda.library_smem_bytes(tier, *shape) != viterbi_cuda.smem_bytes(tier, *shape):
                 raise AssertionError(f"{tier} at {shape}: the wrapper's shared-memory size "
                                      "differs from the kernel's")
         if viterbi_cuda.library_k1_mode(*shape) != viterbi_cuda.k1_mode(*shape):
             raise AssertionError(f"k1 at {shape}: the wrapper's mode differs from the kernel's")
+    # K4's cluster rule (blocks, strips, threads, slices) as the launcher has it
+    for s_pad in (61, 128, 1024, 4100, 16_384, 16_388, 20_480, 24_064, 40_064, 86_400, 99_072,
+                  131_072, 131_076):
+        for cluster in range(viterbi_cuda.MAX_CLUSTER + 2):
+            want = (*viterbi_cuda.cluster_shape(s_pad, cluster),
+                    viterbi_cuda.cluster_slices(s_pad, cluster))
+            if viterbi_cuda.library_cluster(s_pad, cluster) != want:
+                raise AssertionError(f"k4 at S_pad={s_pad} on {cluster} blocks: the wrapper's "
+                                     f"cluster {want} differs from the launcher's "
+                                     f"{viterbi_cuda.library_cluster(s_pad, cluster)}")
+    print("shape rules: shared-memory sizes, K1's modes and K4's clusters (blocks, strips, "
+          "threads, slices) equal the compiled launchers'")
     for hd in range(1, fa.HEAD_DIM_CAP + 1):
         for dtype in (torch.float32, torch.bfloat16):
             for rel in (False, True):
@@ -4080,6 +4264,8 @@ def main() -> int:
     max_err["k5_f32"] = max(max_err["k5_f32"], *(row["err"] for row in f32_rows))
     hour_rows = hour_scale(device, card)
     tier_crossover(device, card, hour_rows)
+    max_err["k4_cluster"], w1_rows = check_cluster_w1(device, card)
+    w2_rows = cluster_hour_w2(device, card)
 
     cfg = Wav2Vec2ModelConfig.from_dict(BASE_CONFIG)
     vocab = make_vocab()
@@ -4092,7 +4278,7 @@ def main() -> int:
 
     def add(counts, phase, want=None):
         for tier, n in counts.items():
-            launches[tier] += n
+            launches[tier] = launches.get(tier, 0) + n
         if want is not None and counts[want] < 1:
             raise AssertionError(f"{phase} never launched {want}: {counts}")
 
@@ -4120,7 +4306,13 @@ def main() -> int:
 
     counts, k4_run = run_longform(device, cfg, params, vocab, minutes=10.0, card=card)
     add(counts, "the long-form entry", "k4")
+    if counts.get("k4_cluster_1", 0) != counts["k4"]:
+        raise AssertionError(f"the 10 min long-form ran K4 on a cluster: {counts}")
     max_err["k4"] = max(max_err["k4"], k4_run["err"])
+    # (w3) 20 min: 23 999 states, past one block's strips
+    counts, w3_run = run_longform(device, cfg, params, vocab, minutes=20.0, card=card)
+    add(counts, "the 20 min long-form entry", "k4_cluster_2")
+    max_err["k4_cluster"] = max(max_err["k4_cluster"], w3_run["err"])
 
     cfg_ph = Wav2Vec2ModelConfig.from_dict({**BASE_CONFIG, "vocab_size": PHONEME_VOCAB})
     head = np.random.default_rng(9).standard_normal((768, PHONEME_VOCAB), dtype=np.float32)
@@ -4269,6 +4461,9 @@ def main() -> int:
         max_err[key] = max(max_err[key], e)
     print(f"time: the (m2) mesh phase took {time.perf_counter() - t_slice:.1f} s {card}")
     print(f"launch counts on the paths: {launches}")
+    K4_CLUSTERS_RUN.update(n for n, c in viterbi_cuda.k4_clusters.items() if c)
+    if not {1, 2}.issubset(K4_CLUSTERS_RUN):
+        raise AssertionError(f"K4 ran with clusters of {sorted(K4_CLUSTERS_RUN)}")
     if not (launches["k5_wgmma"] >= 1 and launches["k5_fma"] >= 1
             and launches["k5_wgmma"] + launches["k5_fma"] == launches["k5"]):
         raise AssertionError(f"K5's launches by kernel on the paths: {launches}; want both "
@@ -4295,6 +4490,24 @@ def main() -> int:
             "bound_by": bound_by,
             "library_ms": None,  # no single PyTorch call computes a banded Viterbi path
         })
+    # every cluster size K4 ran with in this smoke (path runs and checks)
+    line[-1]["clusters"] = sorted(K4_CLUSTERS_RUN)
+    bound_ms, bound_by = dp_bound("k4", *w3_run["shape"][:4], *w3_run["shape"][4:])
+    line.append({
+        "name": "viterbi_k4_cluster",  # K4 past 16 384 states: (w3), 20 min, a cluster of 2
+        "route": "cuda",
+        "source": "wav2vec2_tpu_torch/csrc/viterbi_blocked.cu",
+        "replaces": f"wav2vec2_tpu/ops/viterbi_pallas.py:{replaces['k4']}",
+        "launches": sum(c for k, c in launches.items()
+                        if k.startswith("k4_cluster_") and int(k.rsplit("_", 1)[1]) > 1),
+        "max_abs_err": max_err["k4_cluster"],
+        "ms": w3_run["ms"],
+        "plain_ms": w3_run["plain_ms"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "clusters": [w3_run["cluster"]],
+    })
     line.append({
         "name": "flash_attention_k5",  # bf16: flash_attention_wgmma_kernel
         "route": "cuda",

@@ -19,6 +19,7 @@ from chip_smoke import (
     check_flash,
     check_flash_head_dims,
     check_kernel,
+    cluster_cases,
     flash_cases,
     kernel_cases,
 )
@@ -78,6 +79,39 @@ def test_blocked_kernel_matches_plain_on_the_card(tier):
     assert check_kernel(device, cases, tier) == 0
     torch.cuda.synchronize()
     assert viterbi_cuda.launches[tier] == before + len(cases)
+
+
+@pytest.mark.cuda
+def test_k4_on_a_cluster_matches_plain_on_the_card():
+    """K4 past 16 384 states runs on a cluster (2 blocks at S_pad 20 480, 3
+    at 40 064: ties, an all -inf row, tokens repeating across the slice
+    boundaries), and forced onto every cluster of 2–8 blocks that
+    `cluster_shape` admits on the blocked K4 cases: every path is the plain
+    version's."""
+    device = _card()
+    before = dict(viterbi_cuda.k4_clusters)
+    assert check_kernel(device, cluster_cases(np.random.default_rng(16)), "k4",
+                        oracle=False) == 0
+    for n in (2, 3):
+        assert viterbi_cuda.k4_clusters.get(n, 0) == before.get(n, 0) + 1
+    for case in blocked_cases(np.random.default_rng(8))["k4"]:
+        for n in range(2, viterbi_cuda.MAX_CLUSTER + 1):
+            if viterbi_cuda.cluster_shape(case[2].shape[1], n)[0]:
+                assert check_kernel(device, [case], "k4", cluster=n, oracle=False) == 0
+
+
+@pytest.mark.cuda
+def test_k4_past_eight_blocks_raises_before_launching():
+    device = _card()
+    lp = torch.zeros((1, 64, 32), device=device)
+    tok = torch.zeros((1, 131_076), dtype=torch.int32, device=device)
+    lens = torch.ones(1, dtype=torch.int32, device=device)
+    before = dict(viterbi_cuda.launches)
+    with pytest.raises(ValueError, match="cluster of 8 blocks"):
+        viterbi_cuda.viterbi_batch(lp, tok, lens, lens)
+    with pytest.raises(ValueError, match="states"):
+        viterbi_cuda.viterbi_batch(lp, tok, lens, lens, tier="k4")
+    assert viterbi_cuda.launches == before
 
 
 @pytest.mark.cuda

@@ -2,7 +2,9 @@
 
 - `select_tier`, the Hopper tier rule, on the shapes each path sends: the
   serving shape, long batch buckets, 10 and 60 min long-form with char and
-  phoneme vocabularies, and a wide vocabulary with a short transcript.
+  phoneme vocabularies, a wide vocabulary with a short transcript, and
+  past 16 384 states K4 on a thread-block cluster, with the cluster size
+  and slices each shape gets pinned.
 - The plain versions: `viterbi_emissions_batch` (K2, K3) and
   `viterbi_batch` (K1, K4) bit-identical to `viterbi_numpy`.
 - The port's plain version of each tier bit-identical to the JAX tier it
@@ -64,7 +66,12 @@ def _check_oracle(paths, lp, tok, t_lens, s_lens):
     (5000, 3700, 8000, "k1"),        # neither window fits: K1 reads no window
     (5000, 3500, 8000, "k3"),        # K3's window fits now that rows live in registers
     (1000, 16_384, 32, "k4"),        # K4's widest strips: 512 threads of 32 states
-    (1000, 16_388, 32, "k1"),        # past the strips: K1, whose rows still fit
+    (1000, 16_388, 32, "k4"),        # past one block's strips: K4 on a cluster of 2
+    (10_500, 20_004, 32, "k4"),      # long-form at 17.5 min of the JAX example's rate
+    (48_000, 19_200, 32, "k4"),      # 16 min: off K1's device mode
+    (60_000, 24_064, 32, "k4"),      # 20 min
+    (180_000, 99_072, 32, "k4"),     # an hour at 150 words a minute
+    (180_000, 86_400, 392, "k4"),    # an hour at 12 phones a second
 ])
 def test_select_tier_table(t_pad, s_pad, v, want):
     assert viterbi_cuda.select_tier(t_pad, s_pad, v) == want
@@ -72,14 +79,73 @@ def test_select_tier_table(t_pad, s_pad, v, want):
 
 
 def test_select_tier_raises_past_shared_memory():
-    """Past MAX_STRIP_STATES (16 384) only K1 can serve, and its rows do
-    not fit in shared memory above S_pad ≈ 19 000."""
+    """K2 and K3 stop at one block's MAX_STRIP_STATES (16 384); K4 runs
+    past it on a cluster of up to 8 blocks, and past 131 072 states no tier
+    serves: the error names the cluster's limit. Where K4's window and K1's
+    rows both exceed shared memory, the error says so."""
     assert viterbi_cuda.MAX_STRIP_STATES == 16_384
+    assert viterbi_cuda.MAX_CLUSTER_STATES == 131_072
     viterbi_cuda.check_fits("k4", 100, 16_384, 32)
+    viterbi_cuda.check_fits("k4", 100, 131_072, 32)
+    with pytest.raises(ValueError, match="cluster of 8 blocks"):
+        viterbi_cuda.select_tier(1000, 131_076, 32)
     with pytest.raises(ValueError, match="shared memory"):
-        viterbi_cuda.select_tier(100, 20_000, 32)
+        viterbi_cuda.select_tier(100, 20_000, 8000)
     with pytest.raises(ValueError, match="states"):
-        viterbi_cuda.check_fits("k4", 100, 16_388, 32)
+        viterbi_cuda.check_fits("k3", 100, 16_388, 32)
+    with pytest.raises(ValueError, match="states"):
+        viterbi_cuda.check_fits("k4", 100, 131_076, 32)
+
+
+@pytest.mark.parametrize("t_pad,s_pad,v,n,r,threads,first_slices", [
+    (1000, 16_384, 32, 1, 32, 512, [(0, 16_384)]),
+    (1000, 16_388, 32, 2, 32, 288, [(0, 8_192), (8_192, 16_388)]),
+    (10_500, 20_004, 32, 2, 32, 320, [(0, 10_016), (10_016, 20_004)]),
+    (48_000, 19_200, 32, 2, 32, 320, [(0, 9_600), (9_600, 19_200)]),
+    (60_000, 24_064, 32, 2, 32, 384, [(0, 12_032), (12_032, 24_064)]),
+    (20_000, 40_064, 32, 3, 32, 448, [(0, 13_344), (13_344, 26_688), (26_688, 40_064)]),
+    (180_000, 86_400, 392, 6, 32, 480, [(0, 14_400), (14_400, 28_800)]),
+    (180_000, 99_072, 32, 7, 32, 448, [(0, 14_144), (14_144, 28_288)]),
+    (100, 131_072, 32, 8, 32, 512, [(0, 16_384), (16_384, 32_768)]),
+])
+def test_cluster_shape_is_pinned(t_pad, s_pad, v, n, r, threads, first_slices):
+    """K4's cluster at each width: ceil(W / 16 384) blocks, 32-state strips,
+    block k taking strips [k N / n, (k + 1) N / n); the slices tile [0, W)
+    in whole strips but the last. K1 keeps its device mode at 16 388."""
+    assert viterbi_cuda.select_tier(t_pad, s_pad, v) == "k4"
+    assert viterbi_cuda.cluster_size(s_pad) == n
+    assert viterbi_cuda.cluster_shape(s_pad) == (n, r, threads)
+    slices = viterbi_cuda.cluster_slices(s_pad)
+    assert slices[:len(first_slices)] == first_slices and len(slices) == n
+    w = -(-s_pad // 4) * 4
+    assert slices[-1][1] == w and all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    assert max(b - a for a, b in slices) <= viterbi_cuda.MAX_STRIP_STATES
+    assert viterbi_cuda.bp_scratch_shape("k4", 1, t_pad, s_pad, v) == (1, t_pad, w // 4)
+
+
+@pytest.mark.parametrize("s_pad,cluster,want", [
+    (99_072, 8, (8, 32, 416)),     # chip_smoke's (w2): the least cluster against 8
+    (20_480, 3, (3, 16, 448)),     # a larger cluster takes narrower strips
+    (20_480, 8, (8, 8, 320)),
+    (1_024, 2, (2, 4, 128)),
+    (16_384, 1, (1, 32, 512)),     # a cluster of 1 is the one-block launch
+])
+def test_forced_cluster_shapes(s_pad, cluster, want):
+    assert viterbi_cuda.cluster_shape(s_pad, cluster) == want
+    viterbi_cuda.check_fits("k4", 1000, s_pad, 32, cluster)
+
+
+def test_forced_cluster_on_cpu_runs_the_plain_version():
+    """`cluster=` is checked on the CPU too, then the plain version runs (it
+    has no partition); only K4 takes it."""
+    lp, tok, t_lens, s_lens = _torch(*_batch(4, 2, 40, 5, 64))
+    want = viterbi_ref.viterbi_batch(lp, tok, t_lens, s_lens).numpy()
+    got = viterbi_cuda.viterbi_batch(lp, tok, t_lens, s_lens, tier="k4", cluster=3).numpy()
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="only k4"):
+        viterbi_cuda.viterbi_batch(lp, tok, t_lens, s_lens, tier="k2", cluster=2)
+    with pytest.raises(ValueError, match="cluster"):
+        viterbi_cuda.viterbi_batch(lp, tok, t_lens, s_lens, tier="k4", cluster=9)
 
 
 @pytest.mark.parametrize("t_pad,s_pad,v,want", [
@@ -102,6 +168,10 @@ def test_select_tier_routes_the_smoke_shapes(t_pad, s_pad, v, want):
     ("k3", (8999, 128, 392), 64 * 128 + 528 + 128),
     ("k4", (29999, 12032, 32), 64 * 32 + 528 + 128),
     ("k4", (37, 61, 397), 64 * 400 + 528 + 128),
+    # K4 on a cluster adds a [16, 2] f32 ring and 18 mbarriers (272 B)
+    ("k4", (10_500, 20_004, 32), 64 * 32 + 528 + 128 + 272),
+    ("k4", (180_000, 99_072, 32), 64 * 32 + 528 + 128 + 272),
+    ("k4", (180_000, 86_400, 392), 64 * 392 + 528 + 128 + 272),
 ])
 def test_shared_memory_sizes_are_pinned(tier, shape, want):
     """K1's resident mode: its ring, halo, path row and 2-bit planes; its

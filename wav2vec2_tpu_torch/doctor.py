@@ -94,7 +94,8 @@ def _kernel_symbols() -> list[str]:
 
     names = [f"viterbi_{n}_launch" for n in ("k1_device", "k1_resident", "k2", "k3", "k4")]
     names += [f"viterbi_{tier}_smem_bytes" for tier in viterbi_cuda.TIERS]
-    names += ["viterbi_k1_resident", "viterbi_blocked_strip", "viterbi_k1_strip"]
+    names += ["viterbi_k1_resident", "viterbi_blocked_strip", "viterbi_k1_strip",
+              "viterbi_k4_cluster"]
     names += [f"flash_attention_{kernel}_launch" for kernel in flash_attention._KERNELS.values()]
     names += ["flash_attention_smem_bytes"]
     return names
