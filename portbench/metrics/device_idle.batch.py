@@ -1,0 +1,7 @@
+"""device_idle.batch: Share of the traced window with nothing running on the device."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.idle_share(run)
