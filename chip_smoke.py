@@ -1937,9 +1937,10 @@ def kernel_time_split(fwd, ranges=()):
         cpu = sum(e.device_time_total for e in events if e.device_type == DeviceType.CPU)
         gpu = sum(e.device_time_total for e in events if e.device_type == DeviceType.CUDA)
         spans[label] = (cpu or gpu) / 1e3
+    # device-side ranges (the port's spans, `labels`) cover kernels; they are not kernels
     kernels = [(e.key, e.device_time_total / 1e3) for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.device_time_total > 0
-               and e.key not in labels]
+               and e.key not in labels and not getattr(e, "is_user_annotation", False)]
     groups = {"K5": 0.0, "GEMM": 0.0, "convolution": 0.0, "other": 0.0}
     for name, ms in kernels:
         low = name.lower()
@@ -2880,7 +2881,8 @@ def run_serve(device, card, model_dir: Path, cfg, vocab):
                     **r[3], "audio": pcm16_audio_of(r[0])}), requests))
             quiet_s = time.perf_counter() - t0
         kernel_s = sum(e.device_time_total for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA) / 1e6
+                       if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)) / 1e6
         _, stats2 = http(url, "/stats", method="GET")
         quiet_rtf = (stats2["audio_seconds"] - stats["audio_seconds"]) / (
             stats2["audio_seconds"] / stats2["realtime_factor"] - busy0)

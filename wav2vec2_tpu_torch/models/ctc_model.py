@@ -42,6 +42,7 @@ from .encoder import (
 )
 from .feature_extractor import feature_extractor_forward, feature_projection_forward
 from ..parallel.mesh import batch_local, is_dtensor
+from ..utils.spans import span
 from .layers import full_f32_precision, linear
 
 _ENCODERS = {"wav2vec2": encoder_forward, "sew": sew_encoder_forward,
@@ -59,23 +60,29 @@ def wav2vec2_forward(
     """audio [B, N] normalized waveform → logits [B, T, V] (float32).
 
     `audio_lens` [B] makes batch execution padding-exact: masked GroupNorm
-    statistics, zeroed padded frames, masked attention keys."""
+    statistics, zeroed padded frames, masked attention keys.
+
+    The frontend, from the cast of the audio through the feature
+    projection, is the span `forward.frontend` (`utils.spans`), with its
+    device time on a CUDA device."""
     precision = (
         full_f32_precision() if compute_dtype == torch.float32
         else contextlib.nullcontext()
     )
     with precision, _replicating(audio):
-        x = audio.to(compute_dtype)
-        if cfg.frontend_style == "mel":
-            feats = batch_local(lambda a, lens: mel.mel_frontend(a, cfg, audio_lens=lens)[0],
-                                x, audio_lens)
-            feats = feats.to(compute_dtype)
-        else:
-            feats = batch_local(
-                lambda p, a, lens: feature_extractor_forward(p, a, cfg, audio_lens=lens),
-                params["feature_extractor"], x, audio_lens,
-            ).transpose(1, 2)
-        hidden = feature_projection_forward(params["feature_projection"], feats, cfg)
+        with span("forward.frontend", device=audio.device.type == "cuda"):
+            x = audio.to(compute_dtype)
+            if cfg.frontend_style == "mel":
+                feats = batch_local(
+                    lambda a, lens: mel.mel_frontend(a, cfg, audio_lens=lens)[0],
+                    x, audio_lens)
+                feats = feats.to(compute_dtype)
+            else:
+                feats = batch_local(
+                    lambda p, a, lens: feature_extractor_forward(p, a, cfg, audio_lens=lens),
+                    params["feature_extractor"], x, audio_lens,
+                ).transpose(1, 2)
+            hidden = feature_projection_forward(params["feature_projection"], feats, cfg)
         frame_mask = conv_lens = None
         if audio_lens is not None:
             conv_lens = conv_frame_lengths(cfg, audio_lens)

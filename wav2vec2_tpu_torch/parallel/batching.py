@@ -25,6 +25,13 @@ each batch's rows over the mesh's 'data' axis: the forward runs on
 DTensors, K5 on each rank's (rows, heads) tile, and the Viterbi tier and
 the evidence on each rank's rows; the T-length outputs are gathered, so
 every rank gets every row, in order.
+
+Spans (`utils.spans`, recorded while a torch profiler runs): each batch
+opens `batching.prepare` (the host side of `_submit_entries`:
+normalization, padding, fill rows, with its sample counts),
+`batching.enqueue` (all of `submit_padded_batch`; the forward's
+`forward.frontend` opens inside it), `batching.copy_wait` (the wait for
+its host copies) and `batching.group` (its per-row grouping).
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ from ..ops.evidence import evidence_batch
 from ..pipeline.runtime import _utterance_frame_stats, normalize_audio
 from ..types import AlignmentOutput
 from ..utils.device import select_device
+from ..utils.spans import span
 from .mesh import (
     axis_size,
     batch_local,
@@ -186,10 +194,11 @@ class BatchHandles(tuple):
 def _host_arrays(handles) -> tuple[np.ndarray, ...]:
     """The first six handles as numpy arrays: the pinned host copies once
     their event has completed, or a plain copy of each."""
-    if getattr(handles, "copied", None) is not None:
-        handles.copied.synchronize()
-        return tuple(h.numpy() for h in handles.host)
-    return tuple(h.cpu().numpy() for h in handles[:6])
+    with span("batching.copy_wait"):
+        if getattr(handles, "copied", None) is not None:
+            handles.copied.synchronize()
+            return tuple(h.numpy() for h in handles.host)
+        return tuple(h.cpu().numpy() for h in handles[:6])
 
 
 class BatchAligner:
@@ -301,30 +310,32 @@ class BatchAligner:
         [B, S_pad], s_lens [B], as numpy arrays or tensors. Returns
         `BatchHandles` of device tensors (paths, t_lens, emit_lp, margin,
         blank_prob, entropy[, log_probs]) without synchronising; on a CUDA
-        device their host copies are already enqueued."""
-        dev = self.device
-        if self.mesh is not None:
-            with dtensor_no_grad():
-                return self._submit_sharded(audio, audio_lens, tokens, s_lens,
-                                            return_log_probs)
-        audio = _as_device(audio, None, dev)
-        audio_lens = _as_device(audio_lens, torch.int32, dev)
-        tokens = _as_device(tokens, torch.int32, dev).contiguous()
-        s_lens = _as_device(s_lens, torch.int32, dev)
-        if self.normalize_on_device:
-            audio = _normalize_batch(audio, audio_lens)
-        logits = wav2vec2_forward(
-            self.params, audio, self.cfg, audio_lens=audio_lens,
-            compute_dtype=self.compute_dtype,
-        )
-        log_probs = log_softmax_logits(logits).contiguous()
-        t_lens = frame_lengths(self.cfg, audio_lens).to(torch.int32)
-        paths = viterbi_cuda.viterbi_batch(log_probs, tokens, t_lens, s_lens)
-        out = (paths, t_lens, *evidence_batch(log_probs, tokens, paths, self.blank_id))
-        handles = BatchHandles(out + (log_probs,) if return_log_probs else out)
-        if self._copy_stream is not None:
-            handles.host, handles.copied = self._copy_to_host(out)
-        return handles
+        device their host copies are already enqueued. Opens the span
+        `batching.enqueue`."""
+        with span("batching.enqueue"):
+            dev = self.device
+            if self.mesh is not None:
+                with dtensor_no_grad():
+                    return self._submit_sharded(audio, audio_lens, tokens, s_lens,
+                                                return_log_probs)
+            audio = _as_device(audio, None, dev)
+            audio_lens = _as_device(audio_lens, torch.int32, dev)
+            tokens = _as_device(tokens, torch.int32, dev).contiguous()
+            s_lens = _as_device(s_lens, torch.int32, dev)
+            if self.normalize_on_device:
+                audio = _normalize_batch(audio, audio_lens)
+            logits = wav2vec2_forward(
+                self.params, audio, self.cfg, audio_lens=audio_lens,
+                compute_dtype=self.compute_dtype,
+            )
+            log_probs = log_softmax_logits(logits).contiguous()
+            t_lens = frame_lengths(self.cfg, audio_lens).to(torch.int32)
+            paths = viterbi_cuda.viterbi_batch(log_probs, tokens, t_lens, s_lens)
+            out = (paths, t_lens, *evidence_batch(log_probs, tokens, paths, self.blank_id))
+            handles = BatchHandles(out + (log_probs,) if return_log_probs else out)
+            if self._copy_stream is not None:
+                handles.host, handles.copied = self._copy_to_host(out)
+            return handles
 
     def _submit_sharded(self, audio, audio_lens, tokens, s_lens, return_log_probs):
         """`submit_padded_batch` under the mesh: the rows, padded to a
@@ -389,23 +400,27 @@ class BatchAligner:
         """Pad one bucket's (audio, TokenSequence) entries to [B, n_pad] and
         [B, s_pad] (normalized on the host unless normalize_on_device; the
         batch dim on the pow2 grid ≤ max_batch with pad_batch) and submit
-        it."""
-        b = len(entries)
-        dtype = (np.asarray(entries[0][0]).dtype
-                 if self.normalize_on_device else np.float32)
-        audio = np.zeros((b, n_pad), dtype)
-        tokens = np.zeros((b, s_pad), np.int32)
-        a_l = np.zeros(b, np.int32)
-        s_l = np.zeros(b, np.int32)
-        for j, (a, seq) in enumerate(entries):
-            audio[j, : len(a)] = a if self.normalize_on_device else normalize_audio(a)
-            tokens[j, : len(seq.tokens)] = seq.tokens
-            a_l[j] = len(a)
-            s_l[j] = len(seq.tokens)
-        if pad_batch:
-            audio, a_l, tokens, s_l = _pad_batch_rows(
-                min(max_batch, _round_up_pow2(b, 1)), audio, a_l, tokens, s_l
-            )
+        it. The host part is the span `batching.prepare`, which counts the
+        samples of the fill rows and of the whole batch."""
+        with span("batching.prepare") as prepare:
+            b = len(entries)
+            dtype = (np.asarray(entries[0][0]).dtype
+                     if self.normalize_on_device else np.float32)
+            audio = np.zeros((b, n_pad), dtype)
+            tokens = np.zeros((b, s_pad), np.int32)
+            a_l = np.zeros(b, np.int32)
+            s_l = np.zeros(b, np.int32)
+            for j, (a, seq) in enumerate(entries):
+                audio[j, : len(a)] = a if self.normalize_on_device else normalize_audio(a)
+                tokens[j, : len(seq.tokens)] = seq.tokens
+                a_l[j] = len(a)
+                s_l[j] = len(seq.tokens)
+            if pad_batch:
+                audio, a_l, tokens, s_l = _pad_batch_rows(
+                    min(max_batch, _round_up_pow2(b, 1)), audio, a_l, tokens, s_l
+                )
+            rows = audio.shape[0]
+            prepare.count(samples_fill=(rows - b) * n_pad, samples_total=rows * n_pad)
         return self.submit_padded_batch(audio, a_l, tokens, s_l)
 
     def align_padded_batch(self, audio, audio_lens, tokens, s_lens):
@@ -416,20 +431,22 @@ class BatchAligner:
     def group_batch(self, seqs, handles) -> list[AlignmentOutput]:
         """Group the first len(seqs) rows of one submitted batch (seqs[j] is
         row j's TokenSequence). With host copies in flight it waits for
-        those alone; otherwise it copies the vectors to the host."""
+        those alone (the span `batching.copy_wait`); otherwise it copies the
+        vectors to the host. The rows' grouping is the span `batching.group`."""
         paths, t_lens, emit_lp, margin, blank_prob, entropy = _host_arrays(handles)
         outputs = []
-        for j, seq in enumerate(seqs):
-            t_i = int(t_lens[j])
-            ev = FrameEvidence(
-                emit_lp=emit_lp[j, :t_i],
-                margin=margin[j, :t_i],
-                blank_prob=blank_prob[j, :t_i].astype(np.float64),
-                entropy=entropy[j, :t_i],
-            )
-            words = self._group(paths[j, :t_i], seq, ev)
-            stats = _utterance_frame_stats(paths[j, :t_i], seq.tokens, self.blank_id, ev)
-            outputs.append(AlignmentOutput(words=words, frame_stats=stats))
+        with span("batching.group"):
+            for j, seq in enumerate(seqs):
+                t_i = int(t_lens[j])
+                ev = FrameEvidence(
+                    emit_lp=emit_lp[j, :t_i],
+                    margin=margin[j, :t_i],
+                    blank_prob=blank_prob[j, :t_i].astype(np.float64),
+                    entropy=entropy[j, :t_i],
+                )
+                words = self._group(paths[j, :t_i], seq, ev)
+                stats = _utterance_frame_stats(paths[j, :t_i], seq.tokens, self.blank_id, ev)
+                outputs.append(AlignmentOutput(words=words, frame_stats=stats))
         return outputs
 
     def align_stream(
