@@ -435,29 +435,33 @@ K4_CLUSTERS_RUN: set[int] = set()  # every cluster size K4 launched with in this
 
 
 def reset_launches():
-    from wav2vec2_tpu_torch.ops import flash_attention, viterbi_cuda
+    from wav2vec2_tpu_torch.ops import flash_attention, norm_gelu, viterbi_cuda
 
     K4_CLUSTERS_RUN.update(n for n, c in viterbi_cuda.k4_clusters.items() if c)
     for counts in (viterbi_cuda.launches, viterbi_cuda.k1_launches, flash_attention.launches,
-                   flash_attention.kernel_launches, viterbi_cuda.k4_clusters):
+                   flash_attention.kernel_launches, viterbi_cuda.k4_clusters,
+                   norm_gelu.launches):
         for name in counts:
             counts[name] = 0
 
 
 def read_launches():
     """Launches per kernel since `reset_launches`, K1's per mode
-    ("k1_resident", "k1_device"), K4's per cluster size ("k4_cluster_n")
-    and K5's per kernel ("k5_wgmma": bf16, "k5_fma": f32)."""
+    ("k1_resident", "k1_device"), K4's per cluster size ("k4_cluster_n"),
+    K5's per kernel ("k5_wgmma": bf16, "k5_fma": f32) and K6's per mode
+    ("k6_gelu", "k6_group", "k6_channel"; "k6" all of them)."""
     import torch
 
-    from wav2vec2_tpu_torch.ops import flash_attention, viterbi_cuda
+    from wav2vec2_tpu_torch.ops import flash_attention, norm_gelu, viterbi_cuda
 
     torch.cuda.synchronize()
     K4_CLUSTERS_RUN.update(n for n, c in viterbi_cuda.k4_clusters.items() if c)
     return {**viterbi_cuda.launches, **flash_attention.launches,
             **{f"k1_{mode}": n for mode, n in viterbi_cuda.k1_launches.items()},
             **{f"k4_cluster_{n}": c for n, c in viterbi_cuda.k4_clusters.items()},
-            **{f"k5_{kernel}": n for kernel, n in flash_attention.kernel_launches.items()}}
+            **{f"k5_{kernel}": n for kernel, n in flash_attention.kernel_launches.items()},
+            **{f"k6_{mode}": n for mode, n in norm_gelu.launches.items()},
+            "k6": sum(norm_gelu.launches.values())}
 
 
 def batch_inputs(rng, vocab, batch, seconds, n_words=None, s_pad=S_PAD):
@@ -1762,6 +1766,134 @@ K5_SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "FFMA", "TF32")
 # K5's kernels by dtype: their SASS function names and instantiations
 K5_SASS_KERNELS = {"bfloat16": ("flash_attention_wgmma_kernel", 10),
                    "float32": ("flash_attention_f32_kernel", 12)}
+
+
+# K6 at the main path's shapes: (mode, shape, what runs it there); [B, C, T]
+# for the norms, the FFN's [B, T, I] for the GELU alone
+K6_SHAPES = (
+    ("group", (32, 512, 25_600), "wav2vec2-base's conv 0 at the 8 s bucket"),
+    ("group", (32, 512, 51_200), "wav2vec2-base's conv 0 at the 16 s bucket"),
+    ("channel", (32, 512, 25_600), "the conformer's conv 0 at the 8 s bucket"),
+    ("channel", (32, 512, 51_200), "the conformer's conv 0 at the 16 s bucket"),
+    ("gelu", (32, 400, 3072), "wav2vec2-base's FFN at the 8 s bucket"),
+)
+
+
+# how far K6's norms may move a normalized value z, their f32 statistics
+# summed in another order than ATen's reductions: K6_NORM_TOL·(1 + |z|)
+K6_NORM_TOL = 2.0 ** -16
+
+
+def ordered_bits(x):
+    """A 16-bit float's bits as an integer that counts ulps (both zeros 0)."""
+    import torch
+
+    i = x.view(torch.int16).to(torch.int32)
+    return torch.where(i < 0, -(i & 0x7FFF), i)
+
+
+def from_ordered(o, dtype):
+    import torch
+
+    return torch.where(o < 0, (-o) | 0x8000, o).to(torch.int16).view(dtype)
+
+
+def k6_norm_gap(got, x, norm, w, b, lens, eps=1e-5, rows=4) -> int:
+    """Hold K6's `got` = gelu(norm(x)) (norm "group" or "channel") to
+    `layers`' chain; raise AssertionError past it. z is the chain's f32 norm
+    value before its bf16 rounding. Each element of got must be the GELU of
+    a bf16 norm value within 1 ulp of round(z), or lie between the GELUs of
+    round(z ∓ K6_NORM_TOL·(1 + |z|)) (the statistics' summation order can
+    move a value near 0 many ulps or flip its sign); where |z| >= 2^-8 only
+    the first is allowed. Returns the largest gap of the norm value from
+    the chain's in ulps where |z| >= 2^-8 (0 or 1). `rows` rows of x at a
+    time: the statistics are per row."""
+    import torch
+
+    from wav2vec2_tpu_torch.models import layers
+    from wav2vec2_tpu_torch.ops.norm_gelu import time_mask
+
+    gelu_as = layers.gelu_as
+    gap = 0
+    for r in range(0, x.shape[0], rows):
+        xr, gr = x[r:r + rows], got[r:r + rows]
+        xf = xr.float()
+        if norm == "group":
+            lr = None if lens is None else lens[r:r + rows]
+            z = layers.group_norm_1d(xf, w, b, xr.shape[1], eps, time_mask(lr, xr.shape[2]))
+        else:
+            z = layers.layer_norm_channels(xf, w, b, eps)
+        reach = K6_NORM_TOL * (1 + z.abs())
+        ends = [gelu_as((z + d * reach).to(xr.dtype)).float() for d in (-1, 1)]
+        g = gr.float()
+        ok = (g >= torch.minimum(*ends)) & (g <= torch.maximum(*ends))
+        del ends, reach, g
+        o = ordered_bits(z.to(xr.dtype))
+        large = z.abs() >= 2.0 ** -8
+        del z
+        bits = gr.view(torch.int16)
+        exact = gelu_as(from_ordered(o, xr.dtype)).view(torch.int16) == bits
+        by_one = torch.zeros_like(exact)
+        for d in (1, -1):
+            by_one |= gelu_as(from_ordered(o + d, xr.dtype)).view(torch.int16) == bits
+        within_ulp = exact | by_one
+        if not bool((ok | within_ulp).all()):
+            raise AssertionError(f"K6 {norm}: {int((~(ok | within_ulp)).sum())} elements past "
+                                 "the statistics' reach of the chain")
+        if not bool(within_ulp[large].all()):
+            raise AssertionError(f"K6 {norm}: {int((~within_ulp[large]).sum())} elements of "
+                                 "|z| >= 2^-8 more than 1 bf16 ulp off the chain")
+        if bool((large & ~exact).any()):
+            gap = 1
+    return gap
+
+
+def time_norm_gelu(device, card):
+    """K6 at `K6_SHAPES` against its plain version (`norm_gelu.reference`:
+    `layers`' ATen chain) in turns: device ms of each and the byte bound
+    (each bf16 element read once and written once at 3.35 TB/s). Each row
+    is gated on the same inputs, raising AssertionError: the GELU bit for
+    bit, the norms by `k6_norm_gap`. Rows for the `kernels` line, each with
+    its error: the GELU's largest difference in bf16 ulps, a norm's
+    `k6_norm_gap`."""
+    import torch
+
+    from wav2vec2_tpu_torch.ops import norm_gelu as ng
+
+    rows = []
+    g = torch.Generator(device=device).manual_seed(17)
+    for mode, shape, what in K6_SHAPES:
+        norm = None if mode == "gelu" else mode
+        x = (torch.randn(shape, generator=g, device=device) * 3 + 0.5).to(torch.bfloat16)
+        c = shape[1]
+        w = 1 + 0.2 * torch.randn(c, generator=g, device=device)
+        b = 0.2 * torch.randn(c, generator=g, device=device)
+        lens = None
+        if mode == "group":  # ragged rows: 60-100% of the bucket
+            lens = (torch.linspace(0.6, 1.0, shape[0], device=device) * shape[2]).long()
+        with torch.inference_mode():
+            kernel = lambda: ng.norm_gelu(x, norm, w, b, 1e-5, lens)  # noqa: E731
+            plain = lambda: ng.reference(x, norm, w, b, 1e-5, lens)  # noqa: E731
+            got = kernel()
+            if norm is None:
+                err = int((ordered_bits(got) - ordered_bits(plain())).abs().max())
+                if err != 0:
+                    raise AssertionError(f"K6 gelu at {list(shape)}: {err} bf16 ulps off "
+                                         "layers.gelu_as, want bit for bit")
+            else:
+                err = k6_norm_gap(got, x, norm, w, b, lens)
+            del got
+            k_ms, p_ms = interleaved_ms(kernel, plain, 10, 2)
+        bound_ms = 4 * x.numel() / PEAK_BYTES_PER_S * 1e3
+        print(f"time: K6 {mode} {k_ms:.4f} ms vs plain PyTorch {p_ms:.3f} ms at "
+              f"{list(shape)} bf16 ({what}); bound {bound_ms:.4f} ms by bytes "
+              f"({bound_ms / k_ms:.1%}); error {err} bf16 ulp (gated) "
+              f"(device time, medians; plain, kernel, kernel, plain) {card}")
+        rows.append(dict(mode=mode, shape=shape, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                         err=err))
+        del x
+        torch.cuda.empty_cache()
+    return rows
 
 
 def k5_sass(library: str) -> dict:
@@ -4263,6 +4395,9 @@ def main() -> int:
     for b, nh in ((4, 16), (8, 8)):  # the (m2) mesh's local conformer tiles
         time_flash_shape(device, card, b, nh, 499, 64, rel=True)
     f32_rows = time_flash_f32(device, card)
+    k6_rows = time_norm_gelu(device, card)
+    for mode in ("gelu", "group", "channel"):
+        max_err[f"k6_{mode}"] = max(row["err"] for row in k6_rows if row["mode"] == mode)
     max_err["k5_f32"] = max(max_err["k5_f32"], *(row["err"] for row in f32_rows))
     hour_rows = hour_scale(device, card)
     tier_crossover(device, card, hour_rows)
@@ -4549,6 +4684,23 @@ def main() -> int:
         "bound_by": k5_online["bound_by"],
         "library_ms": k5_online["library_ms"],
     })
+    for row in k6_rows:
+        line.append({
+            "name": f"norm_gelu_k6_{row['mode']}",  # K6 at one of K6_SHAPES
+            "route": "cuda",
+            "source": "wav2vec2_tpu_torch/csrc/norm_gelu.cu",
+            "replaces": None,  # XLA fused these chains on the TPU
+            "launches": launches.get(f"k6_{row['mode']}", 0),
+            # bf16 ulps: the GELU's output against layers.gelu_as; a norm's
+            # value against layers' (k6_norm_gap); both gated in time_norm_gelu
+            "max_ulps": row["err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,  # no single PyTorch call computes the A&S GELU
+            "shape": list(row["shape"]),
+        })
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -74,10 +74,10 @@ def _words(aligner):
             for i, out in aligner.align_stream(_items(), **STREAM)}
 
 
-def _expected_batches():
-    """(samples_fill, samples_total) of each batch, from the lengths alone:
-    pow2 buckets of 1000 samples, 4 rows at most, the rows of a partial
-    batch filled to the next power of two."""
+def _batch_shapes():
+    """(pad, rows, real rows) of each batch, from the lengths alone: pow2
+    buckets of 1000 samples, 4 rows at most, the rows of a partial batch
+    filled to the next power of two."""
     buckets: dict = {}
     for n in LENGTHS:
         pad = 1000
@@ -87,10 +87,23 @@ def _expected_batches():
     out = []
     for pad, lens in buckets.items():
         for i in range(0, len(lens), 4):
-            real = lens[i:i + 4]
-            rows = 1 << (len(real) - 1).bit_length()
-            out.append(((rows - len(real)) * pad, rows * pad))
-    return sorted(out)
+            real = len(lens[i:i + 4])
+            out.append((pad, 1 << (real - 1).bit_length(), real))
+    return out
+
+
+def _expected_batches():
+    """(samples_fill, samples_total) of each batch (`_batch_shapes`)."""
+    return sorted(((rows - real) * pad, rows * pad) for pad, rows, real in _batch_shapes())
+
+
+def _frontend_elems(rows, pad):
+    """Elements of a batch's conv outputs: [rows, 16, T] after each conv."""
+    t, total = pad, 0
+    for k, s in zip(CONFIG["conv_kernel"], CONFIG["conv_stride"]):
+        t = (t - k) // s + 1
+        total += rows * 16 * t
+    return total
 
 
 def _trace(aligner):
@@ -166,7 +179,14 @@ def test_counts_are_the_bucket_arithmetic(traced):
     got = [(s.counts["samples_fill"], s.counts["samples_total"])
            for s in recorded if s.name == "batching.prepare"]
     assert sorted(got) == sorted(_expected_batches())
-    assert all(s.counts == {} for s in recorded if s.name != "batching.prepare")
+    # the frontend's conv outputs, [rows, 16, T] after each conv of a batch
+    # of rows x pad samples; none of them in K6 on the CPU
+    want = sorted(_frontend_elems(rows, pad) for pad, rows, _ in _batch_shapes())
+    got = sorted(s.counts["elems"] for s in recorded if s.name == "forward.frontend")
+    assert got == want
+    assert all("elems_fused" not in s.counts for s in recorded)
+    assert all(s.counts == {} for s in recorded
+               if s.name not in ("batching.prepare", "forward.frontend"))
 
 
 def test_words_identical_traced_or_not(aligner, traced):

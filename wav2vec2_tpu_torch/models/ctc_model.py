@@ -64,7 +64,8 @@ def wav2vec2_forward(
 
     The frontend, from the cast of the audio through the feature
     projection, is the span `forward.frontend` (`utils.spans`), with its
-    device time on a CUDA device."""
+    device time on a CUDA device, the conv outputs' elements (`elems`) and
+    those that K6 wrote (`elems_fused`)."""
     precision = (
         full_f32_precision() if compute_dtype == torch.float32
         else contextlib.nullcontext()

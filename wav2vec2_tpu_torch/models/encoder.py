@@ -56,8 +56,9 @@ import torch.nn.functional as F
 
 from ..config import POSITION_STYLES, Wav2Vec2ModelConfig
 from ..ops import flash_attention as fa
+from ..ops.norm_gelu import norm_gelu
 from ..parallel.mesh import head_local, whole_local
-from .layers import act_fn, gelu, layer_norm, linear
+from .layers import act_fn, layer_norm, linear
 from .quantize import linear_maybe_quantized
 
 
@@ -104,7 +105,7 @@ def pos_conv_forward(
         h = h[:, :-1, :]
     if stride == 1 and h.shape[1] != seq_len:
         raise AssertionError(f"pos-conv gave {h.shape[1]} frames, want {seq_len}")
-    return gelu(h + params["bias"].to(x.dtype))
+    return norm_gelu(h + params["bias"].to(x.dtype))
 
 
 def pos_conv_stack_forward(
@@ -126,7 +127,7 @@ def pos_conv_stack_forward(
         y = y[:, :seq_len] + layers["bias"][i].to(h.dtype)  # an even kernel gives T + 1
         y = F.layer_norm(y.float(), (y.shape[-1],), None, None,
                          cfg.layer_norm_eps).to(h.dtype)
-        h = _masked(gelu(y), frame_mask)
+        h = _masked(norm_gelu(y), frame_mask)
     return h
 
 
@@ -234,7 +235,7 @@ def _dot_attention(q, k, v, bias, _weights=None):
 
 
 def _feed_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
-    up = gelu(linear_maybe_quantized(x, p["intermediate_dense"]))
+    up = norm_gelu(linear_maybe_quantized(x, p["intermediate_dense"]))
     return linear_maybe_quantized(up, p["output_dense"])
 
 
@@ -491,8 +492,8 @@ def sew_d_layers_forward(
         out = out.transpose(1, 2).reshape(h.shape)
         out = linear(out, a["output_dense"]["kernel"], a["output_dense"]["bias"])
         x = layer_norm(out + h, a["output_norm"]["weight"], a["output_norm"]["bias"], eps)
-        up = gelu(linear(x, lp["intermediate_dense"]["kernel"],
-                         lp["intermediate_dense"]["bias"]))
+        up = norm_gelu(linear(x, lp["intermediate_dense"]["kernel"],
+                              lp["intermediate_dense"]["bias"]))
         down = linear(up, lp["output_dense"]["kernel"], lp["output_dense"]["bias"])
         h = layer_norm(down + x, lp["output_norm"]["weight"], lp["output_norm"]["bias"], eps)
     return h
@@ -536,7 +537,7 @@ def sew_encoder_forward(
         for i in range(cfg.num_hidden_layers):
             h = _encoder_layer(_layer_slice(params["layers"], i), h, mask_bias, cfg)
     up = params["upsample"]["projection"]
-    h = gelu(linear(h, up["kernel"], up["bias"]))  # [B, min_len, H·sf]
+    h = norm_gelu(linear(h, up["kernel"], up["bias"]))  # [B, min_len, H·sf]
     h = h.reshape(b, min_len * sf, h.shape[-1] // sf)
     if enc_lens is not None:
         h = _masked(h, torch.arange(h.shape[1], device=x.device)[None, :]

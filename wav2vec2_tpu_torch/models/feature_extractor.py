@@ -17,7 +17,10 @@ PyTorch counterpart of `wav2vec2_tpu.models.feature_extractor`:
   norms use `feature_layer_norm_eps` (the encoder's epsilon is 1e-7).
 
 The convs go to `torch.nn.functional.conv1d` (cuDNN on the card), as the
-JAX package left them to XLA.
+JAX package left them to XLA. Each conv's norm and GELU are one
+`ops.norm_gelu` call (K6 on the card, `layers`' composition on the CPU);
+the elements of the conv outputs are counted on the span the frontend runs
+in (`forward.frontend`) as `elems`, beside K6's own count `elems_fused`.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Wav2Vec2ModelConfig
-from .layers import gelu, group_norm_1d, layer_norm, layer_norm_channels, linear
+from ..ops.norm_gelu import norm_gelu
+from ..utils import spans
+from .layers import layer_norm, linear
 
 
 def feature_extractor_forward(
@@ -44,32 +49,24 @@ def feature_extractor_forward(
     # SEW-D keeps its feature-path norms at feature_layer_norm_eps while its
     # encoder runs at 1e-7; every other family has one epsilon for both
     eps = cfg.feature_layer_norm_eps or cfg.layer_norm_eps
-    for i, (out_c, k, s) in enumerate(
-        zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride)
-    ):
+    for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
         conv = params["conv_layers"][i]["conv"]
         bias = conv.get("bias")
         x = F.conv1d(
             x, conv["weight"].to(x.dtype),
             None if bias is None else bias.to(x.dtype), stride=s,
         )
+        norm, norm_params, frame_lens = None, (), None
         if cfg.feat_extract_norm == "layer":
             ln = params["conv_layers"][i]["layer_norm"]
-            x = layer_norm_channels(x, ln["weight"], ln["bias"], eps)
+            norm, norm_params = "channel", (ln["weight"], ln["bias"])
         elif i == 0:
-            time_mask = None
             if lens is not None:
-                lens = (lens - k) // s + 1
-                time_mask = (
-                    torch.arange(x.shape[2], device=x.device)[None, :]
-                    < lens[:, None]
-                )
+                lens = frame_lens = (lens - k) // s + 1
             gn = params["conv_layers"][0]["layer_norm"]
-            x = group_norm_1d(
-                x, gn["weight"], gn["bias"], num_groups=out_c,
-                eps=eps, time_mask=time_mask,
-            )
-        x = gelu(x)
+            norm, norm_params = "group", (gn["weight"], gn["bias"])
+        x = norm_gelu(x, norm, *norm_params, eps=eps, lens=frame_lens)
+        spans.tally(elems=x.numel())
     return x
 
 

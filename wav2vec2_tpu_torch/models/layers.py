@@ -6,12 +6,16 @@ back to the input dtype, as in the JAX package.
 
 The inference forward works in place on a few f32 temporaries (the
 frontend's first activation is [B, 512, ~N/5]). Autograd cannot take in-place
-steps whose inputs it saved, so where a gradient is wanted (`_wants_grad`:
+steps whose inputs it saved, so where a gradient is wanted (`wants_grad`:
 grad mode on and an operand requiring grad, as in the train step) the norms
 and SiLU run the same operations out of place, and the bf16 GELU is an
 autograd Function whose forward is the in-place code and whose backward
 recomputes the derivative from its input alone. Either way the values are
 the same, bit for bit.
+
+Everything here is ATen operations. `ops.norm_gelu` runs the bf16/f16 GELU
+and the conv frontend's norm + GELU in one hand-written kernel (K6) on the
+card, and keeps these as its plain version.
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ def full_f32_precision():
                  torch.backends.cudnn.allow_tf32) = _tf32_saved
 
 
-def _wants_grad(*tensors: torch.Tensor) -> bool:
+def wants_grad(*tensors: torch.Tensor) -> bool:
     """Whether autograd records an operation on these tensors."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -67,7 +71,7 @@ _AS_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
 _INV_SQRT2 = 0.7071067811865476
 
 
-def _gelu_as(x: torch.Tensor) -> torch.Tensor:
+def gelu_as(x: torch.Tensor) -> torch.Tensor:
     """The A&S GELU of a lower-precision x, in place on three f32
     temporaries: the frontend's first activation is [B, 512, ~N/5], and one
     f32 temporary per operation would not fit on the card at B=128."""
@@ -83,8 +87,8 @@ def _gelu_as(x: torch.Tensor) -> torch.Tensor:
     return xf.mul_(0.5).mul_(erf.add_(1.0)).to(x.dtype)
 
 
-class _GeluAS(torch.autograd.Function):
-    """The A&S GELU with a gradient. The forward is `_gelu_as` and saves
+class GeluAS(torch.autograd.Function):
+    """The A&S GELU with a gradient. The forward is `gelu_as` and saves
     only x; the backward evaluates d/dx of the same expression in f32:
     0.5·(1 + E(z)) + 0.5·x·E'(z)/√2 with z = x/√2, a = |z|, E(z) =
     sign(z)·(1 − P(u)·e^(−a²)) and E'(z) = e^(−a²)·(2a·P(u) + p·u²·P'(u)),
@@ -93,7 +97,7 @@ class _GeluAS(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
-        return _gelu_as(x)
+        return gelu_as(x)
 
     @staticmethod
     def backward(ctx, grad):
@@ -120,7 +124,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     f32 value to bf16."""
     if x.dtype == torch.float32:
         return F.gelu(x)
-    return _GeluAS.apply(x) if _wants_grad(x) else _gelu_as(x)
+    return GeluAS.apply(x) if wants_grad(x) else gelu_as(x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -128,7 +132,7 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     and conv module, evaluated in f32 and cast back to the input dtype."""
     if x.dtype == torch.float32:
         return F.silu(x)
-    return F.silu(x.float(), inplace=not _wants_grad(x)).to(x.dtype)
+    return F.silu(x.float(), inplace=not wants_grad(x)).to(x.dtype)
 
 
 def act_fn(name: str):
@@ -165,7 +169,7 @@ def layer_norm_channels(
     w, b = weight.float().reshape(1, c, 1), bias.float().reshape(1, c, 1)
     xf = x.to(torch.float32, copy=True)
     var, mean = torch.var_mean(xf, dim=1, keepdim=True, correction=0)
-    if _wants_grad(x, weight, bias):
+    if wants_grad(x, weight, bias):
         return ((xf - mean) * torch.rsqrt(var + eps) * w + b).to(x.dtype)
     xf.sub_(mean).mul_(torch.rsqrt(var.add_(eps)))
     xf.mul_(w).add_(b)
@@ -193,7 +197,7 @@ def group_norm_1d(
     cpg = c // num_groups
     # in place on at most two f32 temporaries (the input is [B, 512, ~N/5]),
     # out of place where autograd records the steps
-    inplace = not _wants_grad(x, weight, bias)
+    inplace = not wants_grad(x, weight, bias)
 
     def mul(a, b_):
         return a.mul_(b_) if inplace else a * b_

@@ -31,16 +31,18 @@ On, a span
   once both have completed.
 
 The parent stack is per thread: spans of different threads never nest in
-each other. `snapshot()` returns the finished spans (oldest first) and
-keeps them; `clear()` empties the log.
+each other. `tally(**counts)` adds to the counts of the innermost span open
+on the calling thread, so code below a span's opener can count inside it.
+`snapshot()` returns the finished spans (oldest first) and keeps them;
+`clear()` empties the log.
 
 The spans of the port:
 
 | Span | Opened by | Counts |
 |---|---|---|
 | `batching.prepare` | `BatchAligner._submit_entries`: host normalization, padding, the rows that fill the batch to its pow2 size | `samples_fill` (samples of the fill rows), `samples_total` |
-| `batching.enqueue` | `BatchAligner.submit_padded_batch`, whole: host to device, forward, log-softmax, DP, evidence, the host copies' enqueue | — |
-| `forward.frontend` | `models.ctc_model.wav2vec2_forward`: the conv or mel frontend through the feature projection; device time on a CUDA device | — |
+| `batching.enqueue` | `BatchAligner.submit_padded_batch`, whole: host to device, forward, log-softmax, DP, evidence, the host copies' enqueue | `elems_fused` on the card (the encoder's GELUs in K6) |
+| `forward.frontend` | `models.ctc_model.wav2vec2_forward`: the conv or mel frontend through the feature projection; device time on a CUDA device | `elems` (elements of the conv outputs; none for the mel frontend), `elems_fused` on the card (elements written by K6's launches, `ops.norm_gelu`) |
 | `batching.copy_wait` | `parallel.batching._host_arrays`: the wait for a batch's host copies | — |
 | `batching.group` | `BatchAligner.group_batch`: the per-row grouping | — |
 """
@@ -153,6 +155,17 @@ class SpanLog:
             return _OFF
         return Span(self, name, device, counts)
 
+    def tally(self, **counts) -> None:
+        """Add `counts` to those of the innermost span open on this thread
+        (nothing where none is open, or spans are off)."""
+        if not profiling():
+            return
+        stack = self._stack()
+        if stack:
+            mine = stack[-1].counts
+            for name, n in counts.items():
+                mine[name] = mine.get(name, 0) + n
+
     def snapshot(self) -> list[Span]:
         with self._lock:
             spans = list(self._spans)
@@ -180,5 +193,6 @@ class SpanLog:
 
 LOG = SpanLog()
 span = LOG.span
+tally = LOG.tally
 snapshot = LOG.snapshot
 clear = LOG.clear
