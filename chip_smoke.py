@@ -125,8 +125,11 @@ device it exits non-zero before running anything. The line before the
 last is the `kernels` JSON object (K5's bf16 and f32 kernels in rows of
 their own, with their launches on the paths; K4 on a cluster in a row of
 its own at (w3)'s shape, and K4's row lists every cluster size it ran
-with); the last line of standard output is one JSON object naming the
-device.
+with; K6 a row a mode; K7, the audio normalization kernel, a row at each
+of the base mix's mean and largest batches, held to `normalize_audio` by
+`k7_gap` on int16-valued and on any f32 rows, its launches those of the
+paths, the CLI's batch path among them); the last line of standard output
+is one JSON object naming the device.
 """
 
 from __future__ import annotations
@@ -435,12 +438,12 @@ K4_CLUSTERS_RUN: set[int] = set()  # every cluster size K4 launched with in this
 
 
 def reset_launches():
-    from wav2vec2_tpu_torch.ops import flash_attention, norm_gelu, viterbi_cuda
+    from wav2vec2_tpu_torch.ops import flash_attention, norm_gelu, normalize, viterbi_cuda
 
     K4_CLUSTERS_RUN.update(n for n, c in viterbi_cuda.k4_clusters.items() if c)
     for counts in (viterbi_cuda.launches, viterbi_cuda.k1_launches, flash_attention.launches,
                    flash_attention.kernel_launches, viterbi_cuda.k4_clusters,
-                   norm_gelu.launches):
+                   norm_gelu.launches, normalize.launches):
         for name in counts:
             counts[name] = 0
 
@@ -448,11 +451,12 @@ def reset_launches():
 def read_launches():
     """Launches per kernel since `reset_launches`, K1's per mode
     ("k1_resident", "k1_device"), K4's per cluster size ("k4_cluster_n"),
-    K5's per kernel ("k5_wgmma": bf16, "k5_fma": f32) and K6's per mode
-    ("k6_gelu", "k6_group", "k6_channel"; "k6" all of them)."""
+    K5's per kernel ("k5_wgmma": bf16, "k5_fma": f32), K6's per mode
+    ("k6_gelu", "k6_group", "k6_channel"; "k6" all of them) and K7's
+    ("k7")."""
     import torch
 
-    from wav2vec2_tpu_torch.ops import flash_attention, norm_gelu, viterbi_cuda
+    from wav2vec2_tpu_torch.ops import flash_attention, norm_gelu, normalize, viterbi_cuda
 
     torch.cuda.synchronize()
     K4_CLUSTERS_RUN.update(n for n, c in viterbi_cuda.k4_clusters.items() if c)
@@ -461,7 +465,7 @@ def read_launches():
             **{f"k4_cluster_{n}": c for n, c in viterbi_cuda.k4_clusters.items()},
             **{f"k5_{kernel}": n for kernel, n in flash_attention.kernel_launches.items()},
             **{f"k6_{mode}": n for mode, n in norm_gelu.launches.items()},
-            "k6": sum(norm_gelu.launches.values())}
+            "k6": sum(norm_gelu.launches.values()), "k7": normalize.launches["normalize"]}
 
 
 def batch_inputs(rng, vocab, batch, seconds, n_words=None, s_pad=S_PAD):
@@ -1894,6 +1898,98 @@ def time_norm_gelu(device, card):
         del x
         torch.cuda.empty_cache()
     return rows
+
+
+# K7 at the base mix's batches: (rows, n_pad, shortest and longest row, what)
+K7_SHAPES = (
+    (32, 128_000, 64_001, 128_000, "a mean batch: 32 rows in the 8 s bucket, ≈ 3.1 M samples"),
+    (32, 512_000, 256_001, 472_000, "the largest: 32 rows in the 32 s bucket, up to 29.5 s"),
+)
+K7_NEAR_ZERO = 2.0 ** -30  # |K7 − normalize_audio| allowed where |value| < 2^-8
+K7_EXACT_SHARE = 0.9999  # of elements bit for bit, at least
+
+
+def f32_ulps(a, b):
+    """|a − b| in f32 ulps (both finite; the zeros 0 apart)."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def k7_gap(got, want) -> tuple[int, float]:
+    """Hold K7's `got` [rows, n_pad] to `want` (`normalize_audio`'s rows,
+    padded with zeros); raise AssertionError past 1 f32 ulp where |want| >=
+    2^-8, past `K7_NEAR_ZERO` nearer 0, or under `K7_EXACT_SHARE` of
+    elements bit for bit. Returns (largest ulps where |want| >= 2^-8, share
+    bit for bit)."""
+    ulps = f32_ulps(got, want)
+    large = want.abs() >= 2.0 ** -8
+    worst = int(ulps[large].max()) if bool(large.any()) else 0
+    near = float((got - want)[~large].abs().max()) if bool((~large).any()) else 0.0
+    exact = float((ulps == 0).double().mean())
+    if worst > 1 or near > K7_NEAR_ZERO or exact < K7_EXACT_SHARE:
+        raise AssertionError(f"K7: {worst} ulps where |value| >= 2^-8, {near:.3g} nearer 0, "
+                             f"{exact:.6%} bit for bit")
+    return worst, exact
+
+
+def k7_rows(rng, rows, n_pad, shortest, longest, int16=True):
+    """`rows` raw rows of lengths in [shortest, longest], int16-valued (the
+    mix's) or any f32."""
+    lens = rng.integers(shortest, longest + 1, rows)
+    if int16:
+        return [np.clip(np.round(rng.normal(0, 3276.8, n)), -32768, 32767).astype(np.float32)
+                / np.float32(32768) for n in lens]
+    return [(rng.normal(0.01, 0.3, n) * rng.uniform(0.5, 2.0)).astype(np.float32)
+            for n in lens]
+
+
+def time_normalize(device, card):
+    """K7 at `K7_SHAPES` against `normalize_audio` (gated by `k7_gap`, on
+    int16-valued rows and on any f32 rows) and timed against its plain
+    version (`normalize.reference`, f64 torch on the card) in turns: device
+    ms, the byte bound (the real samples read once, the padded f32 written
+    once, at 3.35 TB/s). Rows for the `kernels` line."""
+    import torch
+
+    from wav2vec2_tpu_torch.ops import normalize
+    from wav2vec2_tpu_torch.pipeline.runtime import normalize_audio
+
+    rng = np.random.default_rng(22)
+    out = []
+    for rows, n_pad, shortest, longest, what in K7_SHAPES:
+        worst, exact = 0, 1.0
+        for int16 in (True, False):
+            raw = k7_rows(rng, rows, n_pad, shortest, longest, int16)
+            packed = normalize.pack_rows(raw, n_pad, pin=True)
+            samples, offsets, lens = (t.to(device) for t in
+                                      (packed.samples, packed.offsets, packed.lens))
+            got = normalize.normalize_rows(samples, offsets, lens, n_pad)
+            want = np.zeros((rows, n_pad), np.float32)
+            for j, r in enumerate(raw):
+                want[j, :len(r)] = normalize_audio(r)
+            w, e = k7_gap(got, torch.from_numpy(want).to(device))
+            worst, exact = max(worst, w), min(exact, e)
+        with torch.inference_mode():
+            k_ms, p_ms = interleaved_ms(
+                lambda: normalize.normalize_rows(samples, offsets, lens, n_pad),
+                lambda: normalize.reference(samples, offsets, lens, n_pad), 20, 2)
+        bound_ms = 4 * (packed.real + rows * n_pad) / PEAK_BYTES_PER_S * 1e3
+        blocks = normalize.cluster_blocks(n_pad)
+        print(f"time: K7 {k_ms:.4f} ms vs plain PyTorch {p_ms:.3f} ms at {rows} x {n_pad} "
+              f"({what}; {packed.real} real samples, a cluster of {blocks} a row); bound "
+              f"{bound_ms:.4f} ms by bytes ({bound_ms / k_ms:.1%}); {worst} f32 ulp where "
+              f"|value| >= 2^-8, {exact:.6%} bit for bit (gated) (device time, medians; "
+              f"plain, kernel, kernel, plain) {card}")
+        out.append(dict(rows=rows, n_pad=n_pad, real=packed.real, ms=k_ms, plain_ms=p_ms,
+                        bound_ms=bound_ms, ulps=worst, exact=exact, blocks=blocks))
+        del samples, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def k5_sass(library: str) -> dict:
@@ -4396,6 +4492,8 @@ def main() -> int:
         time_flash_shape(device, card, b, nh, 499, 64, rel=True)
     f32_rows = time_flash_f32(device, card)
     k6_rows = time_norm_gelu(device, card)
+    k7_rows_timed = time_normalize(device, card)
+    max_err["k7"] = max(row["ulps"] for row in k7_rows_timed)
     for mode in ("gelu", "group", "channel"):
         max_err[f"k6_{mode}"] = max(row["err"] for row in k6_rows if row["mode"] == mode)
     max_err["k5_f32"] = max(max_err["k5_f32"], *(row["err"] for row in f32_rows))
@@ -4468,8 +4566,8 @@ def main() -> int:
                              f"NATIVE_GROUPING={grouping.NATIVE_GROUPING}")
     counts = run_cli(device, card, params_np, cfg, vocab, phoneme_head)
     add(counts, "the CLI", "k1")
-    if counts["k2"] < 1:
-        raise AssertionError(f"the CLI never launched k2: {counts}")
+    if counts["k2"] < 1 or counts["k7"] < 1:
+        raise AssertionError(f"the CLI never launched k2 or k7: {counts}")
 
     # --- times, each beside the card's name and power limit --------------
     kernels = {}
@@ -4700,6 +4798,26 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,  # no single PyTorch call computes the A&S GELU
             "shape": list(row["shape"]),
+        })
+    for row in k7_rows_timed:
+        line.append({
+            "name": "normalize_k7",  # K7 at one of K7_SHAPES
+            "route": "cuda",
+            "source": "wav2vec2_tpu_torch/csrc/normalize.cu",
+            "replaces": None,  # the JAX package normalizes on the host (numpy)
+            "launches": launches.get("k7", 0),
+            # f32 ulps against normalize_audio where |value| >= 2^-8, and the
+            # share bit for bit; both gated in time_normalize (k7_gap)
+            "max_ulps": row["ulps"],
+            "exact_share": row["exact"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,  # no single PyTorch call normalizes ragged rows
+            "shape": [row["rows"], row["n_pad"]],
+            "real_samples": row["real"],
+            "cluster_blocks": row["blocks"],
         })
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 Every source under `csrc/` (the Viterbi kernels K1–K4, the fused
-attention kernel K5 and the norm + GELU kernel K6) is compiled at first use for `sm_90a`, one `nvcc`
+attention kernel K5, the norm + GELU kernel K6 and the audio normalization
+kernel K7) is compiled at first use for `sm_90a`, one `nvcc`
 process a source, all started together, into objects that one more
 `nvcc` links into one shared library with a plain C interface under
 `build/torch_kernels/` at the repository root (rebuilt when a source is
 newer), and loaded with `ctypes`. Each wrapper module (`viterbi_cuda`,
-`flash_attention`, `norm_gelu`) declares the argument types of its own C functions on
+`flash_attention`, `norm_gelu`, `normalize`) declares the argument types of its own C functions on
 the loaded library. Pointers and the stream go in as `ctypes.c_void_p`.
 
 Building and loading hold one lock per process: threads that reach their
@@ -26,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (CSRC / "viterbi.cu", CSRC / "viterbi_blocked.cu",
-           CSRC / "flash_attention.cu", CSRC / "norm_gelu.cu")
+           CSRC / "flash_attention.cu", CSRC / "norm_gelu.cu", CSRC / "normalize.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIBRARY = BUILD_DIR / "libkernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -26,9 +26,17 @@ DTensors, K5 on each rank's (rows, heads) tile, and the Viterbi tier and
 the evidence on each rank's rows; the T-length outputs are gathered, so
 every rank gets every row, in order.
 
+Normalization: on a CUDA device without a mesh, a batch's rows go to the
+card raw, packed back to back in pinned memory and copied without a
+stream sync; K7 (`ops.normalize`) normalizes them there with
+`pipeline.runtime.normalize_audio`'s f64 statistics and writes the padded
+[B, N_pad] audio. On the CPU and under a mesh each row is normalized on the
+host by `normalize_audio` into a padded buffer; `normalize_on_device`
+keeps the f32 batch statistics of `_normalize_batch` on any device.
+
 Spans (`utils.spans`, recorded while a torch profiler runs): each batch
-opens `batching.prepare` (the host side of `_submit_entries`:
-normalization, padding, fill rows, with its sample counts),
+opens `batching.prepare` (the host side of `_submit_entries`: packing or
+host normalization, padding, fill rows, with its sample counts),
 `batching.enqueue` (all of `submit_padded_batch`; the forward's
 `forward.frontend` opens inside it), `batching.copy_wait` (the wait for
 its host copies) and `batching.group` (its per-row grouping).
@@ -61,7 +69,7 @@ from ..models.ctc_model import (
 )
 from ..models.params import cast_compute_weights_bf16, params_to_device
 from ..models.quantize import quantize_encoder_int8
-from ..ops import viterbi_cuda
+from ..ops import normalize, viterbi_cuda
 from ..ops.evidence import evidence_batch
 from ..pipeline.runtime import _utterance_frame_stats, normalize_audio
 from ..types import AlignmentOutput
@@ -174,6 +182,13 @@ def _normalize_batch(audio: torch.Tensor, audio_lens: torch.Tensor) -> torch.Ten
     return centered / std
 
 
+def _raw_rows_to_card(device: torch.device, mesh, normalize_on_device: bool) -> bool:
+    """Whether `_submit_entries` sends a batch's rows raw to the card for
+    K7: on a CUDA device, without a mesh, with `normalize_audio`'s
+    statistics (`normalize_on_device` off)."""
+    return device.type == "cuda" and mesh is None and not normalize_on_device
+
+
 def _as_device(x, dtype, device) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(x))
@@ -219,7 +234,15 @@ class BatchAligner:
     and submits the same batches. The params keep their placement and dtype
     (no bf16 cast): DTensor leaves as the caller placed them
     (`parallel.mesh.shard_params` for tensor parallelism), any other leaf
-    replicated; the device is the mesh's."""
+    replicated; the device is the mesh's.
+
+    `normalize_on_device` chooses the statistics each utterance is
+    normalized with, not where they run: off (the default),
+    `pipeline.runtime.normalize_audio`'s f64 form, on the card by K7
+    (`ops.normalize`) where the device is CUDA and there is no mesh, on the
+    host elsewhere; on, `_normalize_batch`'s f32 form on the device (the
+    JAX package's on-device form, serve's mode), over raw rows padded on
+    the host."""
 
     def __init__(
         self,
@@ -273,6 +296,7 @@ class BatchAligner:
         self.stride_ms = model_cfg.frame_stride_ms(sample_rate_hz)
         self.hp = hp or AlignerHyperParams()
         self.normalize_on_device = normalize_on_device
+        self._raw_to_card = _raw_rows_to_card(self.device, mesh, normalize_on_device)
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         if units not in ("word", "phoneme"):
@@ -307,7 +331,10 @@ class BatchAligner:
                             return_log_probs=False):
         """Enqueue one padded batch: audio [B, N_pad] (pre-normalized f32,
         or raw int16/f32 with normalize_on_device), audio_lens [B], tokens
-        [B, S_pad], s_lens [B], as numpy arrays or tensors. Returns
+        [B, S_pad], s_lens [B], as numpy arrays or tensors; or audio an
+        `ops.normalize.PackedRows` of raw rows (audio_lens its `lens`) with
+        tokens and s_lens as pinned host tensors, all copied without a sync
+        and normalized and padded on the device by K7. Returns
         `BatchHandles` of device tensors (paths, t_lens, emit_lp, margin,
         blank_prob, entropy[, log_probs]) without synchronising; on a CUDA
         device their host copies are already enqueued. Opens the span
@@ -318,12 +345,17 @@ class BatchAligner:
                 with dtensor_no_grad():
                     return self._submit_sharded(audio, audio_lens, tokens, s_lens,
                                                 return_log_probs)
-            audio = _as_device(audio, None, dev)
-            audio_lens = _as_device(audio_lens, torch.int32, dev)
-            tokens = _as_device(tokens, torch.int32, dev).contiguous()
-            s_lens = _as_device(s_lens, torch.int32, dev)
-            if self.normalize_on_device:
-                audio = _normalize_batch(audio, audio_lens)
+            if isinstance(audio, normalize.PackedRows):
+                # pinned host tensors: copies on the compute stream, no sync
+                tokens, s_lens = (x.to(dev, non_blocking=True) for x in (tokens, s_lens))
+                audio, audio_lens = normalize.upload(audio, dev)
+            else:
+                audio = _as_device(audio, None, dev)
+                audio_lens = _as_device(audio_lens, torch.int32, dev)
+                tokens = _as_device(tokens, torch.int32, dev).contiguous()
+                s_lens = _as_device(s_lens, torch.int32, dev)
+                if self.normalize_on_device:
+                    audio = _normalize_batch(audio, audio_lens)
             logits = wav2vec2_forward(
                 self.params, audio, self.cfg, audio_lens=audio_lens,
                 compute_dtype=self.compute_dtype,
@@ -398,29 +430,44 @@ class BatchAligner:
 
     def _submit_entries(self, entries, n_pad, s_pad, max_batch, pad_batch):
         """Pad one bucket's (audio, TokenSequence) entries to [B, n_pad] and
-        [B, s_pad] (normalized on the host unless normalize_on_device; the
-        batch dim on the pow2 grid ≤ max_batch with pad_batch) and submit
-        it. The host part is the span `batching.prepare`, which counts the
-        samples of the fill rows and of the whole batch."""
+        [B, s_pad] (the batch dim on the pow2 grid ≤ max_batch with
+        pad_batch, fill rows repeating the last) and submit it.
+
+        On a CUDA device without a mesh, and with `normalize_on_device`
+        off, the rows go to the card raw: packed back to back in pinned
+        memory (`ops.normalize.pack_rows`), uploaded without a sync and
+        normalized and padded there by K7 with `normalize_audio`'s f64
+        statistics. Elsewhere each row is normalized on the host by
+        `normalize_audio` (raw with normalize_on_device) into a padded numpy
+        buffer. The host part is the span `batching.prepare`, which counts
+        the samples of the fill rows and of the whole padded batch, the real
+        samples, and those of them normalized by K7."""
         with span("batching.prepare") as prepare:
             b = len(entries)
-            dtype = (np.asarray(entries[0][0]).dtype
-                     if self.normalize_on_device else np.float32)
-            audio = np.zeros((b, n_pad), dtype)
+            rows = max(b, min(max_batch, _round_up_pow2(b, 1))) if pad_batch else b
             tokens = np.zeros((b, s_pad), np.int32)
             a_l = np.zeros(b, np.int32)
             s_l = np.zeros(b, np.int32)
             for j, (a, seq) in enumerate(entries):
-                audio[j, : len(a)] = a if self.normalize_on_device else normalize_audio(a)
                 tokens[j, : len(seq.tokens)] = seq.tokens
                 a_l[j] = len(a)
                 s_l[j] = len(seq.tokens)
-            if pad_batch:
-                audio, a_l, tokens, s_l = _pad_batch_rows(
-                    min(max_batch, _round_up_pow2(b, 1)), audio, a_l, tokens, s_l
-                )
-            rows = audio.shape[0]
-            prepare.count(samples_fill=(rows - b) * n_pad, samples_total=rows * n_pad)
+            real = int(a_l.sum())
+            if self._raw_to_card:
+                audio = normalize.pack_rows([a for a, _ in entries], n_pad, rows - b, pin=True)
+                a_l = audio.lens
+                tokens, s_l = (torch.from_numpy(x).pin_memory()
+                               for x in _pad_batch_rows(rows, tokens, s_l))
+            else:
+                dtype = (np.asarray(entries[0][0]).dtype
+                         if self.normalize_on_device else np.float32)
+                audio = np.zeros((b, n_pad), dtype)
+                for j, (a, _) in enumerate(entries):
+                    audio[j, : len(a)] = (a if self.normalize_on_device
+                                          else normalize_audio(a))
+                audio, a_l, tokens, s_l = _pad_batch_rows(rows, audio, a_l, tokens, s_l)
+            prepare.count(samples_fill=(rows - b) * n_pad, samples_total=rows * n_pad,
+                          samples_real=real, samples_card=real if self._raw_to_card else 0)
         return self.submit_padded_batch(audio, a_l, tokens, s_l)
 
     def align_padded_batch(self, audio, audio_lens, tokens, s_lens):

@@ -40,7 +40,7 @@ The spans of the port:
 
 | Span | Opened by | Counts |
 |---|---|---|
-| `batching.prepare` | `BatchAligner._submit_entries`: host normalization, padding, the rows that fill the batch to its pow2 size | `samples_fill` (samples of the fill rows), `samples_total` |
+| `batching.prepare` | `BatchAligner._submit_entries`: on a CUDA device without a mesh the rows packed raw into pinned memory for K7 (`ops.normalize`), elsewhere host normalization and padding; the rows that fill the batch to its pow2 size | `samples_fill` (samples of the fill rows), `samples_total` (of the padded batch), `samples_real` (the utterances' own samples), `samples_card` (those of them that K7 normalizes on the card) |
 | `batching.enqueue` | `BatchAligner.submit_padded_batch`, whole: host to device, forward, log-softmax, DP, evidence, the host copies' enqueue | `elems_fused` on the card (the encoder's GELUs in K6) |
 | `forward.frontend` | `models.ctc_model.wav2vec2_forward`: the conv or mel frontend through the feature projection; device time on a CUDA device | `elems` (elements of the conv outputs; none for the mel frontend), `elems_fused` on the card (elements written by K6's launches, `ops.norm_gelu`) |
 | `batching.copy_wait` | `parallel.batching._host_arrays`: the wait for a batch's host copies | — |
