@@ -74,7 +74,8 @@ random weights from a numpy seed:
   the same utterance aligned alone and >= 99% exact, (s4) in a burst only the request whose
   transcript cannot fit gets 400, (s5) K1 launched resident, and each
   stream's flush equal to the same stream run alone (words, boundaries
-  within one frame); then `--quantize-int8` on 8 requests; `OnlineAligner`
+  within one frame), (s6) the f32 service's audio normalized by K7 and its
+  answers `align_stream`'s words; then `--quantize-int8` on 8 requests; `OnlineAligner`
   on 60 s with 120 words at bf16 and f32 with gates (o1) the emitted words
   a prefix of the flush, (o2) 0.1 s and 1.7 s pieces give the same flush,
   (o3) f32 with normalize="none" gives `align_longform`'s words, (o4) each
@@ -483,6 +484,21 @@ def batch_inputs(rng, vocab, batch, seconds, n_words=None, s_pad=S_PAD):
     return seqs, audio, a_l, tokens, s_l
 
 
+def card_inputs(arrays, device):
+    """(audio, a_l, tokens, s_l), host arrays of a padded batch of raw rows,
+    on `device` as `submit_padded_batch` takes them: the rows normalized and
+    padded there as the batch path does (`ops.normalize.upload`, K7 on the
+    card)."""
+    import torch
+
+    from wav2vec2_tpu_torch.ops import normalize
+
+    audio, a_l, *rest = arrays
+    rows = [audio[j, :n] for j, n in enumerate(a_l)]
+    audio, lens = normalize.upload(normalize.pack_rows(rows, audio.shape[1]), device)
+    return [audio, lens, *(torch.from_numpy(a).to(device) for a in rest)]
+
+
 def run_batch_entry(device, cfg, params, vocab, batch, seconds, n_check,
                     label="wav2vec2-base"):
     """The padded-batch entry at bf16 with the three gates of bench.py:
@@ -501,11 +517,10 @@ def run_batch_entry(device, cfg, params, vocab, batch, seconds, n_check,
 
     rng = np.random.default_rng(0)
     seqs, audio, a_l, tokens, s_l = batch_inputs(rng, vocab, batch, seconds)
-    inputs = [torch.from_numpy(a).to(device) for a in (audio, a_l, tokens, s_l)]
+    inputs = card_inputs((audio, a_l, tokens, s_l), device)
     stride_ms = cfg.frame_stride_ms(SAMPLE_RATE)
 
-    aligner = BatchAligner(cfg, params, vocab, compute_dtype="bfloat16",
-                           device=device, normalize_on_device=True)
+    aligner = BatchAligner(cfg, params, vocab, compute_dtype="bfloat16", device=device)
     handles = aligner.submit_padded_batch(*inputs, return_log_probs=True)
     outs = [o.words for o in aligner.group_batch(seqs, handles)]
     paths = handles[0].cpu().numpy()
@@ -535,8 +550,7 @@ def run_batch_entry(device, cfg, params, vocab, batch, seconds, n_check,
     if not (within_one == total and exact >= 0.99 * total):
         raise AssertionError(f"gate (b): {exact}/{total} exact, {within_one}/{total} within one frame")
 
-    aligner_f32 = BatchAligner(cfg, params, vocab, compute_dtype="float32",
-                               device=device, normalize_on_device=True)
+    aligner_f32 = BatchAligner(cfg, params, vocab, compute_dtype="float32", device=device)
     f32_handles = aligner_f32.submit_padded_batch(*inputs, return_log_probs=True)
     outs_f32 = [o.words for o in aligner_f32.group_batch(seqs, f32_handles)]
     lp_f32 = f32_handles[-1].cpu().numpy()
@@ -587,7 +601,7 @@ def run_long_bucket(aligner, cfg, vocab):
     tier = viterbi_cuda.select_tier(t_pad, 128, cfg.vocab_size)
     if tier != "k2":
         raise AssertionError(f"a {seconds:g} s bucket at S_pad=128 selects {tier}, not k2")
-    inputs = [torch.from_numpy(a).to(aligner.device) for a in arrays]
+    inputs = card_inputs(arrays, aligner.device)
     handles = aligner.submit_padded_batch(*inputs, return_log_probs=True)
     outs = aligner.group_batch(seqs, handles)
     paths, t_lens = handles[0].cpu().numpy(), handles[1].cpu().numpy()
@@ -1608,7 +1622,7 @@ def time_batch_path(aligner, vocab, batch, repeats):
     import torch
 
     seqs, *arrays = batch_inputs(np.random.default_rng(2), vocab, batch, 10.0)
-    inputs = [torch.from_numpy(a).to(aligner.device) for a in arrays]
+    inputs = card_inputs(arrays, aligner.device)
     for _ in range(2):  # warm-up, two batches in flight as below
         aligner.group_batch(seqs, aligner.submit_padded_batch(*inputs))
     torch.cuda.synchronize()
@@ -2228,7 +2242,6 @@ def run_conformer(device, vocab, card):
         feature_projection_forward,
     )
     from wav2vec2_tpu_torch.models.params import params_from_jax
-    from wav2vec2_tpu_torch.parallel.batching import _normalize_batch
 
     cfg = Wav2Vec2ModelConfig.from_dict(CONFORMER_CONFIG)
     params_np = conformer_params(cfg, seed=10)
@@ -2241,9 +2254,8 @@ def run_conformer(device, vocab, card):
         raise AssertionError(f"the conformer batch entry launched {counts}: want K5 "
                              f"{cfg.num_hidden_layers} per forward in 2 forwards, K1 >= 1")
 
+    audio = inputs[0]
     with torch.inference_mode():
-        audio = _normalize_batch(inputs[0], inputs[1])
-
         def forward(p, flash, dtype):
             c = dataclasses.replace(cfg, use_flash_attention=flash)
             return wav2vec2_forward(p, audio, c, audio_lens=inputs[1], compute_dtype=dtype)
@@ -2467,13 +2479,13 @@ def run_family(device, card, name, cfg, params, vocab, units):
 
     from wav2vec2_tpu_torch.models.ctc_model import log_softmax_logits, wav2vec2_forward
     from wav2vec2_tpu_torch.ops.viterbi_ref import viterbi_numpy
-    from wav2vec2_tpu_torch.parallel.batching import BatchAligner, _normalize_batch
+    from wav2vec2_tpu_torch.parallel.batching import BatchAligner
 
     rng = np.random.default_rng(30)
     _, seqs, *arrays = family_inputs(rng, vocab, units, family_words_per_s(cfg))
-    inputs = [torch.from_numpy(a).to(device) for a in arrays]
+    inputs = card_inputs(arrays, device)
     aligners = {dtype: BatchAligner(cfg, params, vocab, compute_dtype=dtype, device=device,
-                                    normalize_on_device=True, units=units)
+                                    units=units)
                 for dtype in ("bfloat16", "float32")}
     reset_launches()
     lp, outs = {}, {}
@@ -2499,7 +2511,7 @@ def run_family(device, card, name, cfg, params, vocab, units):
             check_words(out.words, seq.normalized_words, f"{name} {dtype} utterance {j}")
             if any(w.start_ms % stride_ms or w.end_ms % stride_ms for w in out.words):
                 raise AssertionError(f"{name}: boundaries off the {stride_ms:g} ms grid")
-    audio = _normalize_batch(inputs[0], inputs[1])
+    audio = inputs[0]
     f32 = aligners["float32"]
     worst = 0.0
     with torch.inference_mode():
@@ -2594,13 +2606,11 @@ def time_family(card, name, aligner, vocab):
 
     from wav2vec2_tpu_torch.models import encoder, mel
     from wav2vec2_tpu_torch.models.ctc_model import wav2vec2_forward
-    from wav2vec2_tpu_torch.parallel.batching import _normalize_batch
 
     rtf, total_s, peak_gb, wait_ms, group_ms = time_batch_path(aligner, vocab, 32, repeats=3)
-    _, audio, a_l, _, _ = batch_inputs(np.random.default_rng(2), vocab, 32, 10.0)
-    audio, a_l = (torch.from_numpy(a).to(aligner.device) for a in (audio, a_l))
+    _, *arrays = batch_inputs(np.random.default_rng(2), vocab, 32, 10.0)
+    audio, a_l, _, _ = card_inputs(arrays, aligner.device)
     with torch.inference_mode():
-        audio = _normalize_batch(audio, a_l)
         fwd = lambda: wav2vec2_forward(aligner.params, audio, aligner.cfg,  # noqa: E731
                                        audio_lens=a_l, compute_dtype=torch.bfloat16)
         fwd()
@@ -2976,18 +2986,25 @@ def stream_session(url, text, audio):
     return emitted, out["words"]
 
 
-def alone_agreement(aligner, items, batched, stride_ms):
-    """(words exact, within one frame, total) of the daemon's answers
-    against each (audio, transcript) aligned alone by `align_utterances`."""
+def word_agreement(batched, wanted, stride_ms, what):
+    """(words exact, within one frame, total) of the daemon's JSON answers
+    against `wanted`, each answer's `Word`s from another run (`what`); the
+    word sequences must be equal."""
     exact = within = total = 0
-    for (audio, text), words in zip(items, batched):
-        alone = aligner.align_utterances([audio], [text])[0].words
-        if [w["word"] for w in words] != [w.word for w in alone]:
-            raise AssertionError("a batched answer's words differ from the alone run's")
-        for got, want in zip(words, alone):
+    for words, want_words in zip(batched, wanted):
+        if [w["word"] for w in words] != [w.word for w in want_words]:
+            raise AssertionError(f"a batched answer's words differ from {what}")
+        for got, want in zip(words, want_words):
             d = max(abs(got["start_ms"] - want.start_ms), abs(got["end_ms"] - want.end_ms))
             total, exact, within = total + 1, exact + (d == 0), within + (d <= stride_ms)
     return exact, within, total
+
+
+def alone_agreement(aligner, items, batched, stride_ms):
+    """`word_agreement` against each (audio, transcript) aligned alone by
+    `align_utterances`."""
+    return word_agreement(batched, [aligner.align_utterances([a], [t])[0].words
+                                    for a, t in items], stride_ms, "the alone run's")
 
 
 def run_serve(device, card, model_dir: Path, cfg, vocab):
@@ -3007,14 +3024,18 @@ def run_serve(device, card, model_dir: Path, cfg, vocab):
     (s4) in a burst, the request whose transcript cannot fit gets 400 and
     the others 200; (s5, read by the caller) K1 launched, resident; each
     stream's flush has the words of the same stream run alone in process,
-    boundaries within one frame, and its emitted words are a prefix of it.
-    Then an int8 service on the same directory answers 8 requests."""
+    boundaries within one frame, and its emitted words are a prefix of it;
+    (s6) the f32 service normalized on the card (K7 launched) and its
+    answers have `align_stream`'s words for the same utterances, every
+    boundary within one frame, >= 99% exact. Then an int8 service on the
+    same directory answers 8 requests."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
     from wav2vec2_tpu_torch.align.online import OnlineAligner
+    from wav2vec2_tpu_torch.ops import normalize
     from wav2vec2_tpu_torch.serve import (
         AlignHTTPServer,
         StreamRegistry,
@@ -3148,9 +3169,11 @@ def run_serve(device, card, model_dir: Path, cfg, vocab):
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     try:
         f32_url = f"http://127.0.0.1:{httpd.server_port}"
+        k7 = normalize.launches["normalize"]
         with ThreadPoolExecutor(max_workers=len(checked)) as pool:
             f32_answers = list(pool.map(lambda i: http(f32_url, "/align", requests[i][3]),
                                         checked))
+        k7 = normalize.launches["normalize"] - k7
         if any(c != 200 for c, _ in f32_answers) or max(b["batch_size"]
                                                         for _, b in f32_answers) < 2:
             raise AssertionError(f"gate (s3): f32 answers {[(c, b.get('batch_size')) for c, b in f32_answers]}")
@@ -3160,6 +3183,15 @@ def run_serve(device, card, model_dir: Path, cfg, vocab):
         if not (within == total and exact >= 0.99 * total):
             raise AssertionError(f"gate (s3): {exact}/{total} exact, {within}/{total} within "
                                  "one frame of the utterances aligned alone (f32)")
+        streamed = dict(service.aligner.align_stream((requests[i][:2] for i in checked),
+                                                     max_batch=32))
+        s6 = word_agreement([b["words"] for _, b in f32_answers],
+                            [streamed[j].words for j in range(len(checked))], stride_ms,
+                            "align_stream's")
+        if not (k7 > 0 and s6[1] == s6[2] and s6[0] >= 0.99 * s6[2]):
+            raise AssertionError(f"gate (s6): K7 launched {k7} times for the f32 answers; "
+                                 f"{s6[0]}/{s6[2]} words exact, {s6[1]}/{s6[2]} within one "
+                                 "frame of align_stream's")
     finally:
         httpd.shutdown()
         service.close()
@@ -3174,7 +3206,9 @@ def run_serve(device, card, model_dir: Path, cfg, vocab):
           f"together: {exact}/{total} words exact, {within}/{total} within one frame of each "
           f"aligned alone (bf16, not gated: {bf16_alone[0]}/{bf16_alone[2]} exact, "
           f"{bf16_alone[1]}/{bf16_alone[2]} within one frame); (s4) burst "
-          f"{[c for c, _ in codes]}; streams equal to alone")
+          f"{[c for c, _ in codes]}; streams equal to alone; (s6) K7 launched {k7} times for "
+          f"the f32 answers, align_stream's words, {s6[0]}/{s6[2]} exact, {s6[1]}/{s6[2]} "
+          f"within one frame")
     print(f"time: serve /align latency p50 {np.percentile(lat, 50):.2f} ms, p99 "
           f"{np.percentile(lat, 99):.2f} ms over {SERVE_REQUESTS} requests at {SERVE_CLIENTS} "
           f"clients (latency_ms, beside {STREAMS} streams); /stats realtime_factor "
@@ -3398,9 +3432,8 @@ def run_int8(device, card, cfg, params, vocab, bf16_aligner):
     from wav2vec2_tpu_torch.parallel.batching import BatchAligner
 
     seqs, *arrays = batch_inputs(np.random.default_rng(0), vocab, 32, 10.0)
-    inputs = [torch.from_numpy(a).to(device) for a in arrays]
-    int8 = BatchAligner(cfg, params, vocab, "bfloat16", device=device, normalize_on_device=True,
-                        quantize_int8=True)
+    inputs = card_inputs(arrays, device)
+    int8 = BatchAligner(cfg, params, vocab, "bfloat16", device=device, quantize_int8=True)
     ffn_q = int8.params["encoder"]["layers"]["feed_forward"]
     ffn = params["encoder"]["layers"]["feed_forward"]
     rows = 32 * cfg.conv_output_length(arrays[0].shape[1])
@@ -3452,9 +3485,8 @@ def run_int8(device, card, cfg, params, vocab, bf16_aligner):
           f"{exact}/{total} exact, {within}/{total} within one frame); (i3) launches {counts}")
     with torch.inference_mode():
         from wav2vec2_tpu_torch.models.ctc_model import wav2vec2_forward
-        from wav2vec2_tpu_torch.parallel.batching import _normalize_batch
 
-        audio = _normalize_batch(inputs[0], inputs[1])
+        audio = inputs[0]
         fwd = {name: (lambda a=a: wav2vec2_forward(a.params, audio, cfg, audio_lens=inputs[1],
                                                    compute_dtype=torch.bfloat16))
                for name, a in (("bf16", bf16_aligner), ("int8", int8))}
@@ -3943,13 +3975,12 @@ def run_mesh_m1(device, card, cfg, params_np, vocab):
     try:
         mesh = pmesh.make_mesh(model=1, device="cuda")
         seqs, audio, a_l, tokens, s_l = batch_inputs(np.random.default_rng(0), vocab, 32, 10.0)
-        inputs = [torch.from_numpy(a).to(device) for a in (audio, a_l, tokens, s_l)]
+        inputs = card_inputs((audio, a_l, tokens, s_l), device)
         aligners = {
             "mesh=None": BatchAligner(cfg, params_from_jax(params_np, device=device), vocab,
-                                      "bfloat16", device=device, normalize_on_device=True),
+                                      "bfloat16", device=device),
             "mesh (1x1)": BatchAligner(cfg, params_from_jax(params_np, device=device), vocab,
-                                       "bfloat16", device=device, normalize_on_device=True,
-                                       mesh=mesh),
+                                       "bfloat16", device=device, mesh=mesh),
         }
         runs, times = {}, {k: [] for k in aligners}
         for name in (*aligners, *reversed(aligners), *aligners):
@@ -4090,13 +4121,13 @@ def mesh_phases(rank: int) -> dict:
     params_np = init_params(cfg, seed=0)
     seqs, audio, a_l, tokens, s_l = batch_inputs(np.random.default_rng(0), vocab, MESH_BATCH,
                                                  MESH_SECONDS)
-    inputs = [torch.from_numpy(a).to(device) for a in (audio, a_l, tokens, s_l)]
+    inputs = card_inputs((audio, a_l, tokens, s_l), device)
     plain = BatchAligner(cfg, params_from_jax(params_np, device=device), vocab, "float32",
-                         device=device, normalize_on_device=True)
+                         device=device)
     submit_and_group(plain, seqs, inputs)  # first call: cuBLAS's and the allocator's set-up
     (ref, ref_words), ref_ms = synced_ms(lambda: submit_and_group(plain, seqs, inputs))
     sharded = BatchAligner(cfg, params_from_jax(params_np, device=device), vocab, "float32",
-                           device=device, normalize_on_device=True, mesh=meshes["2x1"])
+                           device=device, mesh=meshes["2x1"])
     submit_and_group(sharded, seqs, inputs)  # first call: DTensor's rule caches
     ((got, words), counts), ms = synced_ms(lambda: counted(
         lambda: submit_and_group(sharded, seqs, inputs)))
@@ -4119,12 +4150,11 @@ def mesh_phases(rank: int) -> dict:
 
     # --- int8 serving at (1x2), base f32: the int32 partial sums ----------
     plain = BatchAligner(cfg, params_from_jax(params_np, device=device), vocab, "float32",
-                         device=device, normalize_on_device=True, quantize_int8=True)
+                         device=device, quantize_int8=True)
     submit_and_group(plain, seqs, inputs)
     (ref, ref_words), ref_ms = synced_ms(lambda: submit_and_group(plain, seqs, inputs))
     sharded = BatchAligner(cfg, pmesh.shard_params(params_np, meshes["1x2"]), vocab, "float32",
-                           device=device, normalize_on_device=True, quantize_int8=True,
-                           mesh=meshes["1x2"])
+                           device=device, quantize_int8=True, mesh=meshes["1x2"])
     submit_and_group(sharded, seqs, inputs)
     comm = CommDebugMode()
     with comm:
@@ -4151,7 +4181,7 @@ def mesh_phases(rank: int) -> dict:
     ccfg = Wav2Vec2ModelConfig.from_dict(CONFORMER_CONFIG)
     cnp = conformer_params(ccfg, seed=10)
     plain = BatchAligner(ccfg, params_from_jax(cnp, device=device), vocab, "float32",
-                         device=device, normalize_on_device=True, use_flash_attention=True)
+                         device=device, use_flash_attention=True)
     submit_and_group(plain, seqs, inputs)
     (ref, ref_words), ref_ms = synced_ms(lambda: submit_and_group(plain, seqs, inputs))
     del plain
@@ -4163,7 +4193,7 @@ def mesh_phases(rank: int) -> dict:
         tree = params_from_jax(cnp, device=device)
         params = pmesh.shard_params(tree, mesh) if key == "1x2" else tree
         sharded = BatchAligner(ccfg, params, vocab, "float32", device=device,
-                               normalize_on_device=True, use_flash_attention=True, mesh=mesh)
+                               use_flash_attention=True, mesh=mesh)
         submit_and_group(sharded, seqs, inputs)
         shapes, first, undo = _k5_tiles()
         comm = CommDebugMode()
@@ -4598,10 +4628,9 @@ def main() -> int:
     kernels["k3"], kernels["k4"] = k3_run, k4_run
 
     from wav2vec2_tpu_torch.models.ctc_model import wav2vec2_forward
-    from wav2vec2_tpu_torch.parallel.batching import _normalize_batch
 
+    audio = inputs[0]
     with torch.inference_mode():
-        audio = _normalize_batch(inputs[0], inputs[1])
         fwd = lambda: wav2vec2_forward(aligner.params, audio, cfg,  # noqa: E731
                                        audio_lens=inputs[1], compute_dtype=torch.bfloat16)
         fwd()

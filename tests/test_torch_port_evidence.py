@@ -1,10 +1,10 @@
-"""PyTorch port vs the JAX package: per-frame evidence, on-device audio
-normalization and bucketing.
+"""PyTorch port vs the JAX package: per-frame evidence and bucketing.
 
 Tolerances: the gathers (emit_lp) and the top-2 margin are exact (the same
 f32 values selected and subtracted once); exp-based values (blank_prob,
-entropy) and the normalization's f32 sums allow 1e-5 relative (another
-exp implementation and summation order).
+entropy) allow 1e-5 relative (another exp implementation and summation
+order). The batches the port's `align_utterances` submits are the JAX
+package's `bucket_utterances` buckets, in any order.
 """
 
 import numpy as np
@@ -14,10 +14,25 @@ import jax.numpy as jnp
 
 from wav2vec2_tpu.ops import evidence as jax_evidence
 from wav2vec2_tpu.parallel import batching as jax_batching
+from wav2vec2_tpu_torch.config import Wav2Vec2ModelConfig
+from wav2vec2_tpu_torch.models.params import init_params, params_from_jax
 from wav2vec2_tpu_torch.ops import evidence as torch_evidence
 from wav2vec2_tpu_torch.parallel import batching as torch_batching
+from wav2vec2_tpu_torch.types import AlignmentOutput
 
 EXP_RTOL = 1e-5
+CONFIG = dict(
+    model_type="wav2vec2",
+    hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+    intermediate_size=64, conv_dim=[16, 16], conv_kernel=[10, 3],
+    conv_stride=[5, 2], num_conv_pos_embeddings=16,
+    num_conv_pos_embedding_groups=4, pad_token_id=0, vocab_size=32,
+    do_stable_layer_norm=False, feat_extract_norm="group", conv_bias=False,
+)
+VOCAB = {"<pad>": 0, "<s>": 1, "</s>": 2, "<unk>": 3, "|": 4}
+for _i, _c in enumerate("ETAONIHSRDLUMWCFGYPBVKXJQZ"):
+    VOCAB[_c] = 5 + _i
+WORDS = ["THE", "QUICK", "BROWN", "FOX", "JUMPS", "OVER", "LAZY", "DOG"]
 
 
 def _inputs(seed, b=3, t=40, v=10, s=16):
@@ -76,26 +91,37 @@ def test_fused_path_evidence_matches_jax():
     np.testing.assert_allclose(got_ev.entropy, want_ev.entropy, rtol=EXP_RTOL)
 
 
-@pytest.mark.parametrize("dtype", [np.int16, np.float32])
-def test_normalize_batch_matches_jax(dtype):
-    rng = np.random.default_rng(8)
-    audio = (rng.normal(size=(3, 3000)) * 3000).astype(dtype)
-    lens = np.array([3000, 1700, 1], np.int32)
-    want = np.asarray(jax_batching._normalize_batch(jnp.asarray(audio), jnp.asarray(lens)))
-    got = torch_batching._normalize_batch(torch.from_numpy(audio), torch.from_numpy(lens)).numpy()
-    np.testing.assert_allclose(got, want, rtol=EXP_RTOL, atol=1e-5)
-    assert (got[1, 1700:] == 0).all()
-
-
 @pytest.mark.parametrize("scheme", ["pow2", "linear"])
-def test_bucketing_matches_jax(scheme):
+def test_bucketing_matches_jax(scheme, monkeypatch):
+    """The (indices, n_pad, s_pad) of each batch the port's
+    `align_utterances` hands `_submit_entries` (spied on; the forward never
+    runs) are those of the JAX package's `bucket_utterances` on the same
+    lengths, as sets in any order."""
+    cfg = Wav2Vec2ModelConfig.from_dict(CONFIG)
+    aligner = torch_batching.BatchAligner(cfg, params_from_jax(init_params(cfg, seed=0)),
+                                          VOCAB, "float32", device="cpu")
     rng = np.random.default_rng(9)
     a_lens = rng.integers(1000, 90000, size=40).tolist()
-    s_lens = rng.integers(5, 400, size=40).tolist()
+    audios = [np.zeros(n, np.float32) for n in a_lens]
+    # up to ~200 tokens, and never more than twice the frames
+    texts = [" ".join(rng.choice(WORDS, size=int(rng.integers(1, min(34, n // 40)))))
+             for n in a_lens]
+    s_lens = [len(aligner._tokenize(t).tokens) for t in texts]
+    index = {id(a): i for i, a in enumerate(audios)}
+    got = []
+
+    def spy(entries, n_pad, s_pad, max_batch, pad_batch):
+        got.append((tuple(index[id(a)] for a, _ in entries), n_pad, s_pad))
+        return len(entries)
+
+    monkeypatch.setattr(aligner, "_submit_entries", spy)
+    monkeypatch.setattr(aligner, "group_batch",
+                        lambda seqs, rows: [AlignmentOutput(words=[])] * rows)
+    outs = aligner.align_utterances(audios, texts, max_batch=8, bucket_scheme=scheme)
+    assert len(outs) == len(audios)
     want = jax_batching.bucket_utterances(a_lens, s_lens, max_batch=8, scheme=scheme)
-    got = torch_batching.bucket_utterances(a_lens, s_lens, max_batch=8, scheme=scheme)
-    assert [(b.indices, b.n_pad, b.s_pad) for b in got] == \
-        [(b.indices, b.n_pad, b.s_pad) for b in want]
+    assert len(want) > 5 and len({(b.n_pad, b.s_pad) for b in want}) > 3
+    assert sorted(got) == sorted((tuple(b.indices), b.n_pad, b.s_pad) for b in want)
     rows = [np.arange(6).reshape(3, 2), np.arange(3)]
     for g, w in zip(torch_batching._pad_batch_rows(4, *rows),
                     jax_batching._pad_batch_rows(4, *rows)):

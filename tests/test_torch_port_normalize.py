@@ -210,10 +210,9 @@ def test_constants_match_the_source():
 
 def test_which_rows_go_raw_to_the_card():
     cuda, cpu, mesh = torch.device("cuda", 0), torch.device("cpu"), object()
-    assert batching._raw_rows_to_card(cuda, None, False)
-    assert not batching._raw_rows_to_card(cpu, None, False)
-    assert not batching._raw_rows_to_card(cuda, mesh, False)  # the mesh: host rows
-    assert not batching._raw_rows_to_card(cuda, None, True)  # serve's f32 statistics
+    assert batching._raw_rows_to_card(cuda, None)
+    assert not batching._raw_rows_to_card(cpu, None)
+    assert not batching._raw_rows_to_card(cuda, mesh)  # the mesh: host rows
 
 
 def _submitted(aligner, monkeypatch, entries, n_pad=64_000):
@@ -233,7 +232,7 @@ def test_host_paths_still_call_normalize_audio(path, monkeypatch):
     cfg, params = _tiny_model()
     aligner = BatchAligner(cfg, params, VOCAB, "float32", device="cpu")
     if path == "mesh":  # a CUDA device under a mesh decides as the CPU does
-        aligner._raw_to_card = batching._raw_rows_to_card(torch.device("cuda"), object(), False)
+        aligner._raw_to_card = batching._raw_rows_to_card(torch.device("cuda"), object())
     entries = [(a, aligner._tokenize(t)) for a, t in _pool(1, n=3)]
     (audio, a_l, tokens, s_l), calls = _submitted(aligner, monkeypatch, entries)
     assert calls == [len(a) for a, _ in entries]

@@ -103,26 +103,31 @@ def test_batch_aligner_matches_jax(models):
             w.frame_stats.blank_frame_ratio, abs=0.05)
 
 
-def test_submit_padded_batch_int16_on_device_normalize(models):
-    """Raw int16 audio, normalized on the device: same paths' words as the
-    JAX engine; device tensors come back unsynchronised."""
+def test_submit_padded_batch_host_normalized_f32(models):
+    """int16 rows normalized on the host by `normalize_audio` into a padded
+    f32 batch, through both packages' default path: same paths' words as
+    the JAX engine; device tensors come back unsynchronised."""
+    from wav2vec2_tpu_torch.pipeline.runtime import normalize_audio
+
     jcfg, tcfg, jp, tp = models
     rng = np.random.default_rng(1)
-    audio = (rng.normal(size=(2, 3200)) * 3000).astype(np.int16)
+    raw = (rng.normal(size=(2, 3200)) * 3000).astype(np.int16)
     a_l = np.array([3200, 2500], np.int32)
-    audio[1, 2500:] = 0
+    audio = np.zeros((2, 3200), np.float32)
+    for j, n in enumerate(a_l):
+        audio[j, :n] = normalize_audio(raw[j, :n])
     seqs = [BatchAligner(tcfg, tp, VOCAB, "float32", device="cpu")._tokenize(t)
             for t in ("brown fox", "over the dog")]
     tokens = np.zeros((2, 128), np.int32)
     for j, s in enumerate(seqs):
         tokens[j, : len(s.tokens)] = s.tokens
     s_l = np.array([len(s.tokens) for s in seqs], np.int32)
-    port = BatchAligner(tcfg, tp, VOCAB, "float32", device="cpu", normalize_on_device=True)
+    port = BatchAligner(tcfg, tp, VOCAB, "float32", device="cpu")
     handles = port.submit_padded_batch(audio, a_l, tokens, s_l, return_log_probs=True)
     assert len(handles) == 7 and all(isinstance(h, torch.Tensor) for h in handles)
     host = port.align_padded_batch(audio, a_l, tokens, s_l)
     np.testing.assert_array_equal(host[0], handles[0].numpy())
-    jax_host = JaxBatchAligner(jcfg, jp, VOCAB, "float32", normalize_on_device=True) \
+    jax_host = JaxBatchAligner(jcfg, jp, VOCAB, "float32") \
         .align_padded_batch(audio, a_l, tokens, s_l)
     np.testing.assert_array_equal(host[1], jax_host[1])  # t_lens
     stride = tcfg.frame_stride_ms(16000)

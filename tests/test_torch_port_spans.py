@@ -9,7 +9,9 @@ first out); the prepare span's counts are the bucket arithmetic of the
 utterances' lengths; the words are those of an untraced run; each span
 starts within 1 ms of its own `record_function` range in the profiler's
 events (one clock; checked in a fresh interpreter, where no thread left
-by another test can hold the GIL between the two stamps). Past its cap the log drops its oldest spans and counts
+by another test can hold the GIL between the two stamps, on the best of
+five traced runs, so that one run preempted on a loaded host does not
+decide it). Past its cap the log drops its oldest spans and counts
 them. The profiler test is process-wide: a span opened on another thread
 records too.
 """
@@ -126,18 +128,24 @@ def traced(aligner):
     return _trace(aligner)
 
 
+CLOCK_RUNS = 5
+
+
 def _clock_offsets() -> dict:
-    """Per span name: how many spans and profiler ranges a traced stream
-    had, and the largest |span start − range start| in ns (an untraced
-    stream first, so that nothing is done for the first time)."""
+    """Per span name, for each of `CLOCK_RUNS` traced streams: how many
+    spans and profiler ranges it had, and the largest |span start − range
+    start| in ns (an untraced stream first, so that nothing is done for the
+    first time)."""
     aligner = _aligner()
     _words(aligner)
-    recorded, events, _ = _trace(aligner)
-    out = {}
-    for name in NAMES:
-        mine = sorted(s.start_ns for s in recorded if s.name == name)
-        theirs = sorted(t for n, t in events if n == name)
-        out[name] = [len(mine), len(theirs), max(abs(a - b) for a, b in zip(mine, theirs))]
+    out = {name: [] for name in NAMES}
+    for _ in range(CLOCK_RUNS):
+        recorded, events, _ = _trace(aligner)
+        for name in NAMES:
+            mine = sorted(s.start_ns for s in recorded if s.name == name)
+            theirs = sorted(t for n, t in events if n == name)
+            out[name].append([len(mine), len(theirs),
+                              max(abs(a - b) for a, b in zip(mine, theirs))])
     return out
 
 
@@ -201,9 +209,14 @@ def test_spans_on_the_profilers_clock():
     assert run.returncode == 0, run.stderr[-2000:]
     offsets = json.loads(run.stdout.strip().splitlines()[-1])
     for name in NAMES:
-        n_mine, n_theirs, worst = offsets[name]
-        assert n_mine == n_theirs > 0, name
-        assert worst <= 1_000_000, (name, worst)
+        runs = offsets[name]
+        assert len(runs) == CLOCK_RUNS, name
+        for n_mine, n_theirs, _ in runs:
+            assert n_mine == n_theirs > 0, name
+        # a span on another clock is off by far more on every run; one
+        # preempted run (the host loaded by other test workers) is not
+        best = min(worst for _, _, worst in runs)
+        assert best <= 1_000_000, (name, [worst for _, _, worst in runs])
 
 
 def test_log_drops_the_oldest_past_its_cap():

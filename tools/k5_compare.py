@@ -117,16 +117,14 @@ def conformer_forward(name: str, fn, card: str) -> dict:
     from wav2vec2_tpu_torch.config import Wav2Vec2ModelConfig
     from wav2vec2_tpu_torch.models.ctc_model import wav2vec2_forward
     from wav2vec2_tpu_torch.models.params import params_from_jax
-    from wav2vec2_tpu_torch.parallel.batching import _normalize_batch
 
     device = torch.device("cuda", 0)
     cfg = dataclasses.replace(Wav2Vec2ModelConfig.from_dict(chip_smoke.CONFORMER_CONFIG),
                               use_flash_attention=True)
     params = params_from_jax(chip_smoke.conformer_params(cfg, seed=10), device=device)
-    _, audio, a_l, _, _ = chip_smoke.batch_inputs(np.random.default_rng(0),
-                                                  chip_smoke.make_vocab(), 32, 10.0)
-    lens = torch.from_numpy(a_l).to(device)
-    x = _normalize_batch(torch.from_numpy(audio).to(device), lens)
+    _, *arrays = chip_smoke.batch_inputs(np.random.default_rng(0), chip_smoke.make_vocab(),
+                                         32, 10.0)
+    x, lens, _, _ = chip_smoke.card_inputs(arrays, device)
     real = fa._library
     earlier = _Launchers(real(), **{name: fn})
 

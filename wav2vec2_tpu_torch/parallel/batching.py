@@ -10,9 +10,10 @@ on a side stream as soon as the batch's evidence is enqueued, so the copy
 (and the host grouping that waits only for it) overlaps the next batch's
 forward.
 
-`align_stream` is the bounded-memory streaming API over the same pair
-(`submit_padded_batch`, then `group_batch` once the batch's host copies are
-done); `units="phoneme"` switches tokenization and grouping to the
+`align_stream` is the engine's one batch loop, bounded in memory, over
+the same pair (`submit_padded_batch`, then `group_batch` once the batch's
+host copies are done); `align_utterances` is that loop collected in input
+order. `units="phoneme"` switches tokenization and grouping to the
 phoneme-CTC mode.
 
 `use_flash_attention` routes the conformer rel-pos attention through the
@@ -31,8 +32,8 @@ card raw, packed back to back in pinned memory and copied without a
 stream sync; K7 (`ops.normalize`) normalizes them there with
 `pipeline.runtime.normalize_audio`'s f64 statistics and writes the padded
 [B, N_pad] audio. On the CPU and under a mesh each row is normalized on the
-host by `normalize_audio` into a padded buffer; `normalize_on_device`
-keeps the f32 batch statistics of `_normalize_batch` on any device.
+host by `normalize_audio` into a padded buffer. Either way the statistics
+are `normalize_audio`'s.
 
 Spans (`utils.spans`, recorded while a torch profiler runs): each batch
 opens `batching.prepare` (the host side of `_submit_entries`: packing or
@@ -46,7 +47,7 @@ from __future__ import annotations
 
 import logging
 import time
-from dataclasses import dataclass, replace
+from dataclasses import replace
 from typing import Sequence
 
 import numpy as np
@@ -135,58 +136,10 @@ def _pad_batch_rows(b_target: int, *arrays):
     return out
 
 
-@dataclass
-class Bucket:
-    """One padded batch of utterance indices sharing (n_pad, s_pad)."""
-
-    indices: list[int]
-    n_pad: int
-    s_pad: int
-
-
-def bucket_utterances(
-    audio_lens: Sequence[int],
-    token_lens: Sequence[int],
-    audio_multiple: int = 16000,
-    token_multiple: int = 128,
-    max_batch: int = 64,
-    scheme: str = "pow2",
-) -> list[Bucket]:
-    """Group utterances into padded (n_pad, s_pad) buckets. Padding is exact
-    (masked model + banded DP). scheme="pow2" rounds lengths up on a
-    geometric grid (multiple·2^k); "linear" to the next multiple."""
-    groups: dict[tuple[int, int], list[int]] = {}
-    for i, (n, s) in enumerate(zip(audio_lens, token_lens)):
-        key = (_pad_len(n, audio_multiple, scheme),
-               _pad_len(s, token_multiple, scheme))
-        groups.setdefault(key, []).append(i)
-    buckets = []
-    for (n_pad, s_pad), idxs in sorted(groups.items()):
-        for i in range(0, len(idxs), max_batch):
-            buckets.append(Bucket(idxs[i : i + max_batch], n_pad, s_pad))
-    return buckets
-
-
-def _normalize_batch(audio: torch.Tensor, audio_lens: torch.Tensor) -> torch.Tensor:
-    """On-device zero-mean/unit-variance per utterance over the valid
-    samples, padded region zeroed, f32 two-pass statistics. Accepts int16
-    audio (half the host→device bytes of f32)."""
-    x = audio.float()
-    m = (torch.arange(x.shape[1], device=x.device)[None, :]
-         < audio_lens[:, None]).float()
-    cnt = torch.clamp(audio_lens.float(), min=1.0)[:, None]
-    mean = torch.sum(x * m, dim=1, keepdim=True) / cnt
-    centered = (x - mean) * m
-    var = torch.sum(centered * centered, dim=1, keepdim=True) / cnt
-    std = torch.clamp(torch.sqrt(var), min=1e-7)
-    return centered / std
-
-
-def _raw_rows_to_card(device: torch.device, mesh, normalize_on_device: bool) -> bool:
+def _raw_rows_to_card(device: torch.device, mesh) -> bool:
     """Whether `_submit_entries` sends a batch's rows raw to the card for
-    K7: on a CUDA device, without a mesh, with `normalize_audio`'s
-    statistics (`normalize_on_device` off)."""
-    return device.type == "cuda" and mesh is None and not normalize_on_device
+    K7: on a CUDA device without a mesh."""
+    return device.type == "cuda" and mesh is None
 
 
 def _as_device(x, dtype, device) -> torch.Tensor:
@@ -236,13 +189,9 @@ class BatchAligner:
     (`parallel.mesh.shard_params` for tensor parallelism), any other leaf
     replicated; the device is the mesh's.
 
-    `normalize_on_device` chooses the statistics each utterance is
-    normalized with, not where they run: off (the default),
-    `pipeline.runtime.normalize_audio`'s f64 form, on the card by K7
-    (`ops.normalize`) where the device is CUDA and there is no mesh, on the
-    host elsewhere; on, `_normalize_batch`'s f32 form on the device (the
-    JAX package's on-device form, serve's mode), over raw rows padded on
-    the host."""
+    Each utterance is normalized with `pipeline.runtime.normalize_audio`'s
+    f64 statistics: on the card by K7 (`ops.normalize`) where the device is
+    CUDA and there is no mesh, on the host elsewhere."""
 
     def __init__(
         self,
@@ -253,7 +202,6 @@ class BatchAligner:
         device: str | torch.device = "cuda",
         hp: AlignerHyperParams | None = None,
         sample_rate_hz: int = 16000,
-        normalize_on_device: bool = False,
         use_flash_attention: bool | None = None,
         units: str = "word",
         quantize_int8: bool = False,
@@ -295,8 +243,7 @@ class BatchAligner:
         self.word_sep_id = vocab.get("|", 0)
         self.stride_ms = model_cfg.frame_stride_ms(sample_rate_hz)
         self.hp = hp or AlignerHyperParams()
-        self.normalize_on_device = normalize_on_device
-        self._raw_to_card = _raw_rows_to_card(self.device, mesh, normalize_on_device)
+        self._raw_to_card = _raw_rows_to_card(self.device, mesh)
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
         if units not in ("word", "phoneme"):
@@ -329,9 +276,10 @@ class BatchAligner:
     @torch.inference_mode()
     def submit_padded_batch(self, audio, audio_lens, tokens, s_lens,
                             return_log_probs=False):
-        """Enqueue one padded batch: audio [B, N_pad] (pre-normalized f32,
-        or raw int16/f32 with normalize_on_device), audio_lens [B], tokens
-        [B, S_pad], s_lens [B], as numpy arrays or tensors; or audio an
+        """Enqueue one padded batch: audio [B, N_pad] f32, each row already
+        normalized (`normalize_audio`, or `ops.normalize.normalize_rows` on
+        the device), audio_lens [B], tokens [B, S_pad], s_lens [B], as numpy
+        arrays or tensors; or audio an
         `ops.normalize.PackedRows` of raw rows (audio_lens its `lens`) with
         tokens and s_lens as pinned host tensors, all copied without a sync
         and normalized and padded on the device by K7. Returns
@@ -354,8 +302,6 @@ class BatchAligner:
                 audio_lens = _as_device(audio_lens, torch.int32, dev)
                 tokens = _as_device(tokens, torch.int32, dev).contiguous()
                 s_lens = _as_device(s_lens, torch.int32, dev)
-                if self.normalize_on_device:
-                    audio = _normalize_batch(audio, audio_lens)
             logits = wav2vec2_forward(
                 self.params, audio, self.cfg, audio_lens=audio_lens,
                 compute_dtype=self.compute_dtype,
@@ -386,8 +332,6 @@ class BatchAligner:
         audio, lens, tokens, s_lens = distribute_rows(
             self.mesh, _as_device(audio, None, dev), audio_lens,
             _as_device(tokens, torch.int32, dev), _as_device(s_lens, torch.int32, dev))
-        if self.normalize_on_device:
-            audio = batch_local(_normalize_batch, audio, lens)
         logits = wav2vec2_forward(
             self.params, audio, self.cfg, audio_lens=lens, compute_dtype=self.compute_dtype,
         )
@@ -433,15 +377,14 @@ class BatchAligner:
         [B, s_pad] (the batch dim on the pow2 grid ≤ max_batch with
         pad_batch, fill rows repeating the last) and submit it.
 
-        On a CUDA device without a mesh, and with `normalize_on_device`
-        off, the rows go to the card raw: packed back to back in pinned
-        memory (`ops.normalize.pack_rows`), uploaded without a sync and
-        normalized and padded there by K7 with `normalize_audio`'s f64
-        statistics. Elsewhere each row is normalized on the host by
-        `normalize_audio` (raw with normalize_on_device) into a padded numpy
-        buffer. The host part is the span `batching.prepare`, which counts
-        the samples of the fill rows and of the whole padded batch, the real
-        samples, and those of them normalized by K7."""
+        On a CUDA device without a mesh the rows go to the card raw: packed
+        back to back in pinned memory (`ops.normalize.pack_rows`), uploaded
+        without a sync and normalized and padded there by K7 with
+        `normalize_audio`'s f64 statistics. Elsewhere each row is normalized
+        on the host by `normalize_audio` into a padded numpy buffer. The
+        host part is the span `batching.prepare`, which counts the samples
+        of the fill rows and of the whole padded batch, the real samples,
+        and those of them normalized by K7."""
         with span("batching.prepare") as prepare:
             b = len(entries)
             rows = max(b, min(max_batch, _round_up_pow2(b, 1))) if pad_batch else b
@@ -459,12 +402,9 @@ class BatchAligner:
                 tokens, s_l = (torch.from_numpy(x).pin_memory()
                                for x in _pad_batch_rows(rows, tokens, s_l))
             else:
-                dtype = (np.asarray(entries[0][0]).dtype
-                         if self.normalize_on_device else np.float32)
-                audio = np.zeros((b, n_pad), dtype)
+                audio = np.zeros((b, n_pad), np.float32)
                 for j, (a, _) in enumerate(entries):
-                    audio[j, : len(a)] = (a if self.normalize_on_device
-                                          else normalize_audio(a))
+                    audio[j, : len(a)] = normalize_audio(a)
                 audio, a_l, tokens, s_l = _pad_batch_rows(rows, audio, a_l, tokens, s_l)
             prepare.count(samples_fill=(rows - b) * n_pad, samples_total=rows * n_pad,
                           samples_real=real, samples_card=real if self._raw_to_card else 0)
@@ -520,9 +460,12 @@ class BatchAligner:
         InvalidInputError. `max_pending` bounds the utterances waiting in
         partly filled buckets: when it is reached, the fullest pending
         bucket submits early. At the end the pending buckets submit in
-        sorted (n_pad, s_pad) order."""
+        sorted (n_pad, s_pad) order. Exhausted, the generator returns (as
+        its `StopIteration.value`) the utterances, samples and batches it
+        submitted."""
         pending: dict[tuple[int, int], list[tuple[int, np.ndarray, object]]] = {}
         in_flight: list[tuple[list, tuple]] = []
+        utterances = samples = batches = 0
 
         def submit(entries, key):
             return self._submit_entries(
@@ -535,6 +478,8 @@ class BatchAligner:
                 yield idx, out
 
         def launch(entries, key):
+            nonlocal batches
+            batches += 1
             in_flight.append((entries, submit(entries, key)))
             if len(in_flight) > max_in_flight:
                 yield from drain(*in_flight.pop(0))
@@ -552,6 +497,8 @@ class BatchAligner:
                     f"utterance {idx}: audio too short for transcript: "
                     f"{t_i} frames < {min_frames} required"
                 )
+            utterances += 1
+            samples += len(audio)
             key = (_pad_len(len(audio), audio_multiple, bucket_scheme),
                    _pad_len(len(seq.tokens), token_multiple, bucket_scheme))
             entries = pending.setdefault(key, [])
@@ -568,6 +515,7 @@ class BatchAligner:
             yield from launch(pending[key], key)
         while in_flight:
             yield from drain(*in_flight.pop(0))
+        return utterances, samples, batches
 
     def align_utterances(
         self,
@@ -579,63 +527,31 @@ class BatchAligner:
         bucket_scheme: str = "pow2",
         pad_batch: bool = True,
     ) -> list[AlignmentOutput]:
-        """Full path: normalize, tokenize, bucket, batch-align, group.
-        Padding is exact — outputs are identical under any bucketing."""
-        seqs = [self._tokenize(t) for t in transcripts]
-        lens = [len(a) for a in audios]
-        s_lens = [len(s.tokens) for s in seqs]
-        outputs: list[AlignmentOutput | None] = [None] * len(audios)
-
-        active, active_lens, active_slens = [], [], []
-        for i, (n, seq) in enumerate(zip(lens, seqs)):
-            if n == 0 or not transcripts[i].strip() or not seq.normalized_words:
-                outputs[i] = AlignmentOutput(words=[])
-                continue
-            t_i = self.cfg.conv_output_length(n)
-            min_frames = -(-len(seq.tokens) // 2)
-            if t_i < min_frames:
-                raise InvalidInputError(
-                    f"utterance {i}: audio too short for transcript: "
-                    f"{t_i} frames < {min_frames} required"
-                )
-            active.append(i)
-            active_lens.append(n)
-            active_slens.append(len(seq.tokens))
-
-        buckets = bucket_utterances(
-            active_lens, active_slens, audio_multiple, token_multiple,
-            max_batch, scheme=bucket_scheme,
-        )
-        for bucket in buckets:
-            bucket.indices = [active[j] for j in bucket.indices]
-
-        def submit(bucket: Bucket):
-            return self._submit_entries(
-                [(audios[i], seqs[i]) for i in bucket.indices],
-                bucket.n_pad, bucket.s_pad, max_batch, pad_batch,
-            )
-
-        def drain(bucket: Bucket, handles: tuple):
-            grouped = self.group_batch([seqs[i] for i in bucket.indices], handles)
-            for i, out in zip(bucket.indices, grouped):
-                outputs[i] = out
-
-        # enqueue device work up to `max_in_flight` buckets ahead; group on
-        # the host as results drain
-        max_in_flight = 4
-        in_flight: list[tuple[Bucket, tuple]] = []
+        """Full path: normalize, tokenize, bucket, batch-align, group; the
+        outputs in input order. It is `align_stream` collected, with every
+        utterance pending at once, so each (n_pad, s_pad) bucket forms its
+        batches in input order, three of them in flight. Padding is exact —
+        outputs are identical under any bucketing. A degenerate input gets
+        an empty AlignmentOutput; an utterance too short for its transcript
+        raises InvalidInputError when the stream reaches it, after the
+        batches before it may have been submitted."""
+        outputs = [AlignmentOutput(words=[])] * len(audios)
         t_start = time.perf_counter()
-        for bucket in buckets:
-            in_flight.append((bucket, submit(bucket)))
-            if len(in_flight) >= max_in_flight:
-                drain(*in_flight.pop(0))
-        while in_flight:
-            drain(*in_flight.pop(0))
-        if buckets:
-            audio_sec = sum(active_lens) / 16000.0
-            elapsed = time.perf_counter() - t_start
+        stream = self.align_stream(
+            zip(audios, transcripts), audio_multiple, token_multiple, max_batch,
+            max_in_flight=3, max_pending=len(audios) + 1, bucket_scheme=bucket_scheme,
+            pad_batch=pad_batch,
+        )
+        while True:
+            try:
+                idx, out = next(stream)
+            except StopIteration as done:
+                utterances, samples, batches = done.value
+                break
+            outputs[idx] = out
+        if batches:
             logger.info(
                 "aligned %d utterances (%.1f s audio) in %d buckets, %.2f s",
-                len(active), audio_sec, len(buckets), elapsed,
+                utterances, samples / 16000.0, batches, time.perf_counter() - t_start,
             )
-        return [o if o is not None else AlignmentOutput(words=[]) for o in outputs]
+        return outputs

@@ -11,8 +11,8 @@ Design:
   `max_batch`, whichever fills first) serviced by ONE worker thread that
   owns the GPU for `/align`, while HTTP threads only parse and wait;
 - batches run through `BatchAligner.align_utterances` (bucketing, padded
-  batches, submit/drain with host copies on a side stream: K1 on the
-  card);
+  batches normalized on the card by K7, submit/drain with host copies on
+  a side stream: K1 on the card);
 - endpoints:
     POST /align    {"audio": [f32...] | {"pcm16": base64, ...},
                     "sample_rate_hz": 16000, "transcript": "...",
@@ -589,8 +589,6 @@ def build_service_from_model_dir(
     aligner = BatchAligner(
         cfg, params, vocab, compute_dtype=compute_dtype, device=dev,
         quantize_int8=quantize_int8, units=units,
-        # normalization runs on the device, inside the batch
-        normalize_on_device=True,
     )
     service = AlignmentService(aligner, window_ms=window_ms,
                                max_batch=max_batch)
